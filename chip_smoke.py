@@ -7,12 +7,17 @@ Phases, each printing one JSON line:
   1. device   - nvidia-smi name and power limit, torch device name;
   2. build    - nvcc builds the moments kernel from csrc/ (sm_90a);
   3. kernel   - the kernel against its plain version at the bench shapes
-                (uniform and adversarial slots), bitwise repeatability,
-                times (CUDA events, median) and the HBM bound;
+                (uniform and adversarial slots) and at the default
+                config's shapes: within tolerance, bitwise repeatable and
+                bitwise equal to the CPU's sequential index_add_ (each a
+                check that fails the run); warm- and cold-L2 times with
+                the queue full (see `time_ms`) and the HBM bound;
   4. slice    - SlamPipeline.process_scan at bench.py's configuration and
                 scene (22 warm-up + 40 steady scans, then flush): init
                 succeeds, no reset, finite poses, ATE < 0.10 m, one kernel
                 launch per steady scan, and a second run bitwise equal;
+     then the same checks and times on the main path's own inputs
+     (the last steady scan's), with their slot statistics per level;
   5. kernels  - one line listing every kernel with its numbers;
   6. the last line: {"ok": true, "device": {...}}.
 
@@ -20,6 +25,7 @@ Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,7 +40,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 KERNEL_TOL = 1e-5               # max abs error / max |sum|
 ATE_LIMIT = 0.10                # m (JAX e2e bound, tests/test_pipeline_e2e.py)
 N_WARM, N_STEADY = 22, 40       # bench.py's warm-up and segment length
-N_TIMED = 30                    # launches per timing median
+N_TIMED = 100                   # calls per timed CUDA graph
+N_REPEAT = 5                    # graph replays per timing median
+FLUSH_BYTES = 128 << 20         # written between calls for cold-L2 times
+EARLIER_MS = 0.512              # the slice-1 kernel on the main path (PERF.md)
+DEFAULT_SHAPES = ((1 << 15, 1 << 16, 1 << 17), 8192)   # MapConfig/OdometryConfig
 
 
 def emit(phase, **kw):
@@ -77,22 +87,58 @@ def bench_packets(n_scans, n_az=160, n_el=24):
     return traj, packets
 
 
-def time_ms(fn, n=N_TIMED):
-    """Median device time of fn() over n launches (CUDA events)."""
+def time_ms(fn):
+    """Device ms per fn() call, with the queue full.
+
+    N_TIMED calls of fn are captured once in a CUDA graph. Each timing enqueues
+    a sleep kernel, the start event, one replay of the graph and the end
+    event: while the card sleeps, the host has enqueued everything, so the
+    events see the calls run back to back and not Python's enqueue (a
+    check raises if the host was still enqueueing when the sleep ended).
+    Returns the median over N_REPEAT replays of (end - start) / N_TIMED."""
     import torch
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(N_TIMED):
+            fn()
+    torch.cuda.synchronize()
+    sleep_cycles = 2_000_000                  # about 1 ms at 1.98 GHz
     times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    while len(times) < N_REPEAT:
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(sleep_cycles)
+        t0 = time.perf_counter()
         a.record()
-        fn()
+        graph.replay()
         b.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        if host_ms >= e0.elapsed_time(a):     # the queue ran dry
+            sleep_cycles *= 2
+            if sleep_cycles > 2_000_000_000:
+                raise RuntimeError("cannot fill the queue ahead of the card")
+            continue
+        times.append(a.elapsed_time(b) / N_TIMED)
+    del graph
     times.sort()
     return times[len(times) // 2]
+
+
+def cold_ms(fn, flush):
+    """Device ms per fn() with a cold L2: N_TIMED x (write the FLUSH_BYTES
+    buffer, then fn) minus N_TIMED x (write the buffer), both timed as
+    `time_ms` times."""
+    def both():
+        flush.zero_()
+        fn()
+    return time_ms(both) - time_ms(flush.zero_)
 
 
 def kernel_inputs(caps, P, adversarial, seed):
@@ -123,13 +169,41 @@ def check_kernel(slots, upds, caps):
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     scale = max(float(b.abs().max()) for b in ref)
-    repeat = all(torch.equal(a, b) for a, b in zip(out, out2))
-    vs_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu))
+    repeat = all(torch.equal(bits(a), bits(b)) for a, b in zip(out, out2))
+    vs_cpu = all(torch.equal(bits(a), bits(b)) for a, b in zip(out, cpu))
     return err, scale, repeat, vs_cpu
 
 
-def time_kernel(slots, upds, caps):
-    """(kernel ms, plain ms, library ms, bound ms) on these inputs."""
+def bits(x):
+    """A float32 tensor's bits on the CPU (+0.0 and -0.0 differ)."""
+    import torch
+    return x.cpu().contiguous().view(torch.int32)
+
+
+def slot_stats(slots, upds, caps):
+    """Per level: how the inputs fall on the table's rows. Zero rows are
+    points whose 16 values are all +-0.0 (the kernel skips them);
+    `max_per_row` counts the other in-range points on the busiest row,
+    `max_per_row_all` counts every in-range point."""
+    import torch
+    stats = []
+    for l, c in enumerate(caps):
+        s = slots[l].long().cpu()
+        inr = (s >= 0) & (s < c)
+        zero = (upds[l].cpu() == 0).all(dim=1)
+        keep = inr & ~zero
+        cnt = torch.bincount(s[keep], minlength=c)
+        cnt_all = torch.bincount(s[inr], minlength=c)
+        stats.append(dict(
+            C=c, P=int(s.numel()), distinct_rows=int((cnt > 0).sum()),
+            max_per_row=int(cnt.max()), max_per_row_all=int(cnt_all.max()),
+            zero_rows=int(zero.sum()), out_of_range=int((~inr).sum())))
+    return stats
+
+
+def time_kernel(slots, upds, caps, flush):
+    """Kernel, cold-L2 kernel, plain and library ms, and the bytes bound
+    in ms, on these inputs."""
     import torch
     from voxelslam_tpu_torch.ops import moments as mo
     L, P = slots.shape
@@ -140,12 +214,52 @@ def time_kernel(slots, upds, caps):
     flat = upds.reshape(-1, mo.CH)
     n0 = mo.counter.launches
     ms = time_ms(lambda: mo.launch(slots, upds, caps, out))
+    cold = cold_ms(lambda: mo.launch(slots, upds, caps, out), flush)
     mo.counter.launches = n0          # timing launches are not the main path
     plain = time_ms(lambda: mo.accumulate_ref(slots, upds, caps))
     library = time_ms(lambda: torch.zeros(
         (sum(caps), mo.CH), device=slots.device).index_add_(0, gslots, flat))
     nbytes = L * P * 4 + L * P * mo.CH * 4 + sum(caps) * mo.CH * 4
-    return ms, plain, library, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=library,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def kernel_phase(name, slots, upds, caps, flush, **extra):
+    """Check and time the kernel on one input; fail the run on any
+    disagreement. Returns (max_abs_err, times)."""
+    err, scale, repeat, vs_cpu = check_kernel(slots, upds, caps)
+    within = err <= KERNEL_TOL * max(scale, 1.0)
+    tm = time_kernel(slots, upds, caps, flush)
+    emit("kernel", input=name, L=len(caps), P=slots.shape[1], caps=caps,
+         max_abs_err=err, max_abs_sum=scale, tol=KERNEL_TOL,
+         bitwise_repeat=repeat, bitwise_vs_cpu_index_add=vs_cpu, **tm,
+         bound_share=tm["bound_ms"] / tm["ms"], **extra,
+         ok=within and repeat and vs_cpu)
+    if not within:
+        fail(f"moments kernel disagrees with accumulate_ref ({name})")
+    if not repeat:
+        fail(f"moments kernel is not bitwise repeatable ({name})")
+    if not vs_cpu:
+        fail(f"moments kernel is not bitwise equal to the CPU's "
+             f"index_add_ ({name})")
+    return err, tm
+
+
+@contextlib.contextmanager
+def capturing(capture):
+    """While active, `capture` holds the inputs (slots, upds, caps) of the
+    last `moments.accumulate` call, the map insert's."""
+    from voxelslam_tpu_torch.ops import moments as mo
+    real = mo.accumulate
+
+    def spy(slots, upds, caps):
+        capture[:] = [slots.clone(), upds.clone(), tuple(caps)]
+        return real(slots, upds, caps)
+    mo.accumulate = spy
+    try:
+        yield capture
+    finally:
+        mo.accumulate = real
 
 
 def run_slice(cfg, traj, packets, device, capture=None):
@@ -156,16 +270,9 @@ def run_slice(cfg, traj, packets, device, capture=None):
     from voxelslam_tpu_torch.pipeline import SlamPipeline
     from voxelslam_tpu_torch.ops import moments as mo
     from voxelslam_tpu_torch.utils.metrics import ate_rmse
-    import voxelslam_tpu_torch.map.voxel_map as vm
 
-    if capture is not None:
-        real = mo.accumulate
-
-        def spy(slots, upds, caps):
-            capture[:] = [slots.clone(), upds.clone(), tuple(caps)]
-            return real(slots, upds, caps)
-        vm.mo.accumulate = spy
-    try:
+    with (capturing(capture) if capture is not None
+          else contextlib.nullcontext()):
         pipe = SlamPipeline(cfg, collect_clouds=False, device=device)
         phases, n_steady = [], 0
         torch.cuda.synchronize()
@@ -182,9 +289,6 @@ def run_slice(cfg, traj, packets, device, capture=None):
         steady_s = time.perf_counter() - t_steady
         pipe.flush()
         launches = mo.counter.launches
-    finally:
-        if capture is not None:
-            vm.mo.accumulate = real
     poses = pipe.scan_poses
     est = np.stack([sp.p for sp in poses])
     rot = np.stack([sp.R for sp in poses])
@@ -225,25 +329,21 @@ def main():
     t0 = time.perf_counter()
     lib = mo.build()
     mo._library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
+    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
+         design=mo.design())
 
-    # 3. kernel vs plain version at the bench shapes
+    # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
     caps, P = tuple(cfg.map.capacities), cfg.odom.point_max
-    kern = {}
-    for name, adv, seed in (("uniform", False, 0), ("adversarial", True, 1)):
-        slots, upds = kernel_inputs(caps, P, adv, seed)
-        err, scale, repeat, vs_cpu = check_kernel(slots, upds, caps)
-        ok = err <= KERNEL_TOL * max(scale, 1.0) and repeat
-        ms, plain, library, bound = time_kernel(slots, upds, caps)
-        emit("kernel", input=name, L=len(caps), P=P, caps=caps,
-             max_abs_err=err, max_abs_sum=scale, tol=KERNEL_TOL,
-             bitwise_repeat=repeat, bitwise_vs_cpu_index_add=vs_cpu,
-             ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound,
-             ok=ok)
-        if not ok:
-            fail(f"moments kernel disagrees with accumulate_ref ({name})")
-        kern[name] = (err, ms, plain, library, bound)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    errs = []
+    for name, shapes, adv, seed in (
+            ("uniform", (caps, P), False, 0),
+            ("adversarial", (caps, P), True, 1),
+            ("default_config", DEFAULT_SHAPES, False, 2)):
+        slots, upds = kernel_inputs(*shapes, adv, seed)
+        errs.append(kernel_phase(name, slots, upds, shapes[0], flush)[0])
+    del flush, slots, upds            # not part of the slice's peak memory
     mo.counter.reset()
 
     # 4. the slice: bench.py configuration and scene, twice
@@ -276,20 +376,22 @@ def main():
     # the kernel at the main path's own inputs (last steady scan)
     torch.use_deterministic_algorithms(False)
     slots, upds, caps_r = capture
-    err, scale, repeat, _ = check_kernel(slots, upds, caps_r)
-    if not (err <= KERNEL_TOL * max(scale, 1.0) and repeat):
-        fail("moments kernel disagrees with accumulate_ref on main-path input")
-    ms, plain, library, bound = time_kernel(slots, upds, caps_r)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    err, tm = kernel_phase("main_path", slots, upds, caps_r, flush,
+                           slot_stats=slot_stats(slots, upds, caps_r))
+    errs.append(err)
 
     # 5. kernels line
     print(json.dumps({"kernels": [{
         "name": "accumulate", "route": "cuda",
         "source": "voxelslam_tpu_torch/csrc/moments.cu",
         "replaces": "voxelslam_tpu/ops/moments.py:103",
-        "launches": r["launches"], "max_abs_err": max(
-            err, kern["uniform"][0], kern["adversarial"][0]),
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": library}]}), flush=True)
+        "launches": r["launches"], "max_abs_err": max(errs),
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+        "library_ms": tm["library_ms"], "cold_ms": tm["cold_ms"],
+        "bound_share": tm["bound_ms"] / tm["ms"],
+        "earlier_ms": EARLIER_MS}]}), flush=True)
 
     # 6. last line
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """The moments kernel's wrapper (`voxelslam_tpu_torch.ops.moments`): its
-dispatch and input checks on the CPU, and, on a card, the CUDA kernel
-against its plain version. This file imports no JAX, so the card test
-runs where JAX is absent:
+dispatch and input checks on the CPU, the contract the CUDA kernel is held
+to (ascending-order row sums, exact-zero rows skipped) and a step-by-step
+model of the kernel's algorithm against the plain version, and, on a
+card, the CUDA kernel against its plain version. This file imports no
+JAX, so the card tests run where JAX is absent:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -14,6 +16,9 @@ from voxelslam_tpu_torch.ops import moments as mo
 
 torch.set_num_threads(1)
 
+BENCH_CAPS = (1 << 13, 1 << 15, 1 << 16)     # bench.py's MapConfig
+DEFAULT_CAPS = (1 << 15, 1 << 16, 1 << 17)   # the default MapConfig
+
 
 def t(a, dtype=torch.float32):
     return torch.as_tensor(np.array(a), dtype=dtype)
@@ -21,6 +26,11 @@ def t(a, dtype=torch.float32):
 
 def n(x):
     return x.detach().cpu().numpy()
+
+
+def bits(x):
+    """A float32 tensor's bits on the CPU, so that +0.0 and -0.0 differ."""
+    return x.detach().cpu().contiguous().view(torch.int32)
 
 
 def test_accumulate_cpu_dispatch_is_plain_version():
@@ -57,29 +67,199 @@ def test_accumulate_validates_inputs():
                       (64, 64))
 
 
+@pytest.mark.parametrize("bad", ["cpu_tensors", "misaligned_upds",
+                                 "misaligned_out", "out_shape"])
+def test_launch_checks_raise(bad):
+    """`launch` refuses what the kernel cannot take before it builds or
+    calls anything: tensors off the card, rows not 16-byte aligned (the
+    kernel reads and writes float4s), a wrong output table."""
+    caps = (64, 64)
+    s = torch.zeros((2, 10), dtype=torch.int32)
+    u = torch.zeros((2, 10, 16))
+    out = torch.empty((sum(caps), 16))
+    if bad == "misaligned_upds":
+        u = torch.zeros(2 * 10 * 16 + 1)[1:].view(2, 10, 16)
+    elif bad == "misaligned_out":
+        out = torch.empty(sum(caps) * 16 + 1)[1:].view(sum(caps), 16)
+    elif bad == "out_shape":
+        out = torch.empty((sum(caps) - 8, 16))
+    match = {"cpu_tensors": "CUDA", "misaligned_upds": "aligned",
+             "misaligned_out": "aligned", "out_shape": "out must"}[bad]
+    mo._check(s, u, caps)
+    with pytest.raises(ValueError, match=match):
+        mo.launch(s, u, caps, out)
+
+
+def _case(name):
+    """(slots (L, P) int32, upds (L, P, 16) f32) numpy arrays and caps,
+    made from a seed. uniform and hot: bench shapes as chip_smoke.py
+    makes them; P*: one level-set at P points (P4097 and P20000 cross the
+    kernel's 4096-point passes); L1/L8: one and eight levels; cap8 and
+    cap1032: capacities of 8 and 1032 rows (no multiple of the tile);
+    dropped: 30% of slots negative or >= C; slot0_signed_zeros: every
+    point on slot 0, 80% of them rows of +-0.0; default_config: the
+    default MapConfig/OdometryConfig shapes; small_hot: hot at small
+    capacities, for the CPU tests."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    P, caps = 4096, BENCH_CAPS
+    if name.startswith("P"):
+        P = int(name[1:])
+        caps = BENCH_CAPS if P > 1000 else (64, 128, 256)
+    elif name == "L1":
+        caps = (1024,)
+    elif name == "L8":
+        caps, P = (8, 16, 64, 264, 1032, 4096, 8, 520), 700
+    elif name == "cap8":
+        caps, P = (8, 8, 8), 100
+    elif name == "cap1032":
+        caps, P = (1032, 1032), 3000
+    elif name == "default_config":
+        caps, P = DEFAULT_CAPS, 8192
+    elif name in ("dropped", "slot0_signed_zeros", "small_hot"):
+        caps, P = (512, 1032, 264), 2000
+    L = len(caps)
+    slots = np.stack([rng.integers(0, c, P) for c in caps]).astype(np.int32)
+    upd = rng.normal(size=(L, P, 16)).astype(np.float32)
+    upd[:, :, 15] = 0.0
+    if name in ("hot", "small_hot"):
+        hot = rng.random((L, P)) < 0.9
+        slots = np.where(hot, rng.integers(0, 4, (L, P)), slots)
+        upd[rng.random((L, P)) < 0.1] = 0.0
+    elif name == "dropped":
+        far = np.array(caps)[:, None] + rng.integers(0, 5000, (L, P))
+        neg = -rng.integers(1, 2**31 - 1, (L, P))
+        side = rng.random((L, P)) < 0.5
+        slots = np.where(rng.random((L, P)) < 0.3,
+                         np.where(side, far, neg), slots)
+    elif name == "slot0_signed_zeros":
+        slots[:] = 0
+        z = rng.random((L, P)) < 0.8
+        sign = np.where(rng.random((L, P, 16)) < 0.5, -1.0, 1.0)
+        upd[z] = (0.0 * sign[z]).astype(np.float32)
+    return slots.astype(np.int32), upd, caps
+
+
+@pytest.mark.parametrize("name", ["small_hot", "dropped",
+                                  "slot0_signed_zeros"])
+def test_accumulate_ref_is_sequential_ascending_sum(name):
+    """The contract the kernel is held to: on the CPU `accumulate_ref`
+    adds each row's points one at a time in ascending index, bitwise, and
+    drops out-of-range slots. Hot rows make the order visible."""
+    slots, upd, caps = _case(name)
+    ref = mo.accumulate_ref(t(slots, torch.int32), t(upd), caps)
+    for l, c in enumerate(caps):
+        table = np.zeros((c, 16), np.float32)
+        for i in range(slots.shape[1]):
+            s = int(slots[l, i])
+            if 0 <= s < c:
+                table[s] = table[s] + upd[l, i]         # float32 adds
+        assert torch.equal(bits(ref[l]), bits(torch.from_numpy(table)))
+
+
+@pytest.mark.parametrize("how", ["packed_w0", "signed_zero_rows"])
+def test_skipping_zero_rows_is_bitwise_exact(how):
+    """Leaving out every point whose 16 values are all +-0.0 leaves the
+    tables bitwise unchanged: a sum that starts at +0.0 never becomes -0.0.
+    The map insert's padded points are such rows, and w = 0 times a
+    negative q gives -0.0 (`pack_updates`)."""
+    rng = np.random.default_rng(3)
+    caps, P = (64, 256), 600
+    slots = np.stack([rng.integers(0, c, P) for c in caps]).astype(np.int32)
+    slots[:, ::3] = 0                                   # slot 0 gets the pads
+    if how == "packed_w0":
+        q = rng.uniform(-0.5, 0.5, (P, 3)).astype(np.float32)
+        nv = rng.normal(0, 1e-3, (P, 5)).astype(np.float32)
+        w = (rng.random(P) > 0.4).astype(np.float32)
+        row = mo.pack_updates(t(q), t(nv), t(w))
+        upd = torch.stack([row, 0.5 * row]).contiguous()
+    else:
+        upd = t(rng.normal(size=(2, P, 16)))
+        z = t(rng.random((2, P)) < 0.5, torch.bool)
+        sign = torch.where(t(rng.random((2, P, 16))) < 0.5, -1.0, 1.0)
+        upd[z] = 0.0 * sign[z]
+    zero = (upd == 0).all(dim=2)
+    assert zero.any() and bool(torch.signbit(upd[zero]).any())
+    st = t(slots, torch.int32)
+    full = mo.accumulate_ref(st, upd, caps)
+    for l, c in enumerate(caps):
+        keep = ~zero[l]
+        kept = mo.accumulate_ref(st[l][keep][None].contiguous(),
+                                 upd[l][keep][None].contiguous(), (c,))[0]
+        assert torch.equal(bits(full[l]), bits(kept))
+
+
+def _kernel_model(slots, upd, caps, target, tile, items, threads=256):
+    """`csrc/moments.cu` step by step in numpy. Level l is cut into tiles
+    of R_l rows (about `target` points a tile, a multiple of 8, at most
+    `tile`). Per tile and pass of threads * items points: A. the points in
+    the tile, in order; B. `threads` list entries at a time, zero rows
+    dropped and the kept ones packed in order; C. 32 kept entries a batch,
+    warp w (of threads / 32) taking the table rows with row % warps == w,
+    the lanes of a group on one row added in lane order."""
+    warps = threads // 32
+    P = slots.shape[1]
+    outs = []
+    for l, c in enumerate(caps):
+        rows = min(max(c * target // P // 8 * 8, 8), tile)
+        table = np.zeros((c, 16), np.float32)
+        for row0 in range(0, c, rows):
+            nrows = min(rows, c - row0)
+            for base in range(0, P, threads * items):
+                pts = np.arange(base, min(base + threads * items, P))
+                r = slots[l, pts].astype(np.int64) - row0
+                inn = (r >= 0) & (r < nrows)
+                lpt, lrow = pts[inn], r[inn]                     # A
+                for e0 in range(0, len(lpt), threads):           # B
+                    sub = slice(e0, e0 + threads)
+                    kept = (upd[l, lpt[sub]] != 0).any(axis=1)
+                    kpt, krow = lpt[sub][kept], lrow[sub][kept]
+                    for k0 in range(0, len(kpt), 32):            # C
+                        for w in range(warps):
+                            batch = [k for k in range(k0, min(k0 + 32,
+                                                              len(kpt)))
+                                     if krow[k] % warps == w]
+                            for k in batch:                      # lane order
+                                t = row0 + krow[k]
+                                table[t] = table[t] + upd[l, kpt[k]]
+        outs.append(table)
+    return outs
+
+
+@pytest.mark.parametrize("name,target,tile,items,threads", [
+    ("small_hot", 32, 256, 16, 256), ("small_hot", 8, 64, 1, 32),
+    ("dropped", 32, 128, 2, 64), ("slot0_signed_zeros", 32, 256, 4, 32),
+    ("cap1032", 1 << 20, 512, 2, 256), ("L8", 16, 64, 1, 64)])
+def test_kernel_algorithm_model_matches_plain(name, target, tile, items,
+                                              threads):
+    """The kernel's algorithm (density-sized tiles, passes, compaction,
+    zero-row skip, sub-passes, per-warp row ownership, lane-order groups)
+    gives the plain version's bits, with tiles, passes and sub-passes small
+    enough that rows and passes split."""
+    slots, upd, caps = _case(name)
+    ref = mo.accumulate_ref(t(slots, torch.int32), t(upd), caps)
+    model = _kernel_model(slots, upd, caps, target, tile, items, threads)
+    for a, b in zip(model, ref):
+        assert torch.equal(bits(torch.from_numpy(a)), bits(b))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hot", [False, True])
-def test_accumulate_kernel_matches_plain_on_card(hot):
-    """The CUDA kernel against its plain version at the bench shapes,
-    with uniform slots and with 90% of the points on 4 slots: bitwise
-    repeatable, and bitwise equal to the CPU's ascending-order sums."""
+@pytest.mark.parametrize("name", ["uniform", "hot", "P1", "P33", "P4097",
+                                  "P20000", "L1", "L8", "cap8", "cap1032",
+                                  "dropped", "slot0_signed_zeros",
+                                  "default_config"])
+def test_accumulate_kernel_matches_plain_on_card(name):
+    """The CUDA kernel against its plain version (see `_case` for the
+    inputs): one launch a call, bitwise repeatable, and bitwise equal to
+    the CPU's ascending-order sums, signed zeros included."""
     _card()
-    caps = (1 << 13, 1 << 15, 1 << 16)
-    g = torch.Generator().manual_seed(int(hot))
-    slots = torch.stack([torch.randint(0, c, (4096,), generator=g)
-                         for c in caps])
-    upd = torch.randn((3, 4096, 16), generator=g)
-    if hot:
-        slots = torch.where(torch.rand((3, 4096), generator=g) < 0.9,
-                            torch.randint(0, 4, (3, 4096), generator=g), slots)
-        upd[torch.rand((3, 4096), generator=g) < 0.1] = 0.0
-    slots = slots.to(torch.int32).cuda()
-    upd = upd.cuda()
+    slots, upd, caps = _case(name)
+    slots = t(slots, torch.int32).cuda()
+    upd = t(upd).cuda()
     before = mo.counter.launches
     a = mo.accumulate(slots, upd, caps)
     assert mo.counter.launches == before + 1
@@ -87,8 +267,8 @@ def test_accumulate_kernel_matches_plain_on_card(hot):
     cpu = mo.accumulate_ref(slots.cpu(), upd.cpu(), caps)
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, cpu):
-        assert torch.equal(x, y)                        # deterministic
-        assert torch.equal(x.cpu(), z)                  # ascending-order sums
+        assert torch.equal(bits(x), bits(y))            # deterministic
+        assert torch.equal(bits(x), bits(z))            # ascending-order sums
 
 
 @pytest.mark.cuda

@@ -15,9 +15,22 @@ warm-up, then measures the steady scans three ways:
      kernel launches and host<->device copies per scan, and the kernels
      that take the most device time.
 
+Then, on the moments kernel (`csrc/moments.cu`) alone:
+
+  4. its device time per call in the profiler's trace of 3., beside its
+     time by CUDA events (chip_smoke.time_ms: warm L2, queue full; and
+     chip_smoke.cold_ms: L2 flushed between calls) on the inputs of a
+     steady scan's insert, captured in one more dispatch after 3.;
+  5. its designs (`moments.build` macros: rows a tile, points a block,
+     bulk-copy store) on those inputs and at the bench and default
+     shapes: each built beside the others (one nvcc each, started
+     together), checked bitwise against the CPU's index_add_, then timed.
+
 Prints one JSON object and writes it to chiprun_out/profile_slice.json.
 Needs a GPU; exits non-zero without one.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import json
 import os
@@ -30,6 +43,59 @@ sys.path.insert(0, str(ROOT))
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 N_WARM, N_STEADY, N_PROF = 22, 24, 8
+# designs of the moments kernel compared in 5. (() is the one in use)
+DESIGNS = [(), ("VS_TARGET=16",), ("VS_TARGET=64",),
+           ("VS_TARGET=1000000",), ("VS_TILE=512",), ("VS_TMA_STORE=1",)]
+
+
+def moments_kernel(kernels, capture):
+    """4.: the kernel's profiled device time per call against its event
+    times on the captured inputs (microseconds)."""
+    import torch
+    import chip_smoke as cs
+    from voxelslam_tpu_torch.ops import moments as mo
+    slots, upds, caps = capture
+    mine = [k for k in kernels if "accumulate_kernel" in k[0]]
+    calls = sum(k[1] for k in mine)
+    out = torch.empty((sum(caps), mo.CH), device=slots.device)
+    flush = torch.empty(cs.FLUSH_BYTES // 4, device=slots.device)
+    run = lambda: mo.launch(slots, upds, caps, out)   # noqa: E731
+    return {
+        "profiled_calls": calls,
+        "profiler_us_per_call": sum(k[2] for k in mine) / max(calls, 1),
+        "event_us_warm": 1e3 * cs.time_ms(run),
+        "event_us_cold": 1e3 * cs.cold_ms(run, flush),
+        "slot_stats": cs.slot_stats(slots, upds, caps),
+    }
+
+
+def moments_designs(capture):
+    """5.: every design in DESIGNS on the captured inputs and at the bench
+    and default shapes; microseconds a call, warm L2, queue full."""
+    import torch
+    import chip_smoke as cs
+    from voxelslam_tpu_torch.ops import moments as mo
+    with ThreadPoolExecutor(len(DESIGNS)) as pool:   # one nvcc each
+        list(pool.map(mo.build, DESIGNS))
+    bench = tuple(cs.bench_config().map.capacities)
+    inputs = {"main_path": tuple(capture),
+              "uniform": (*cs.kernel_inputs(bench, 4096, False, 0), bench),
+              "default_config": (*cs.kernel_inputs(*cs.DEFAULT_SHAPES,
+                                                   False, 2),
+                                 cs.DEFAULT_SHAPES[0])}
+    rows = []
+    for d in DESIGNS:
+        row = {"defines": list(d), **mo.design(d)}
+        for name, (slots, upds, caps) in inputs.items():
+            out = torch.empty((sum(caps), mo.CH), device=slots.device)
+            mo.launch(slots, upds, caps, out, d)
+            cpu = mo.accumulate_ref(slots.cpu(), upds.cpu(), caps)
+            same = torch.equal(cs.bits(out), cs.bits(torch.cat(cpu)))
+            us = 1e3 * cs.time_ms(lambda: mo.launch(slots, upds, caps, out,
+                                                    d))
+            row[name] = {"us": us, "bitwise_vs_cpu": same}
+        rows.append(row)
+    return rows
 
 
 def main():
@@ -42,9 +108,9 @@ def main():
 
     torch.use_deterministic_algorithms(True)
     cfg = cs.bench_config()
-    traj, packets = cs.bench_packets(N_WARM + N_STEADY + N_PROF)
+    K = cfg.odom.batch_scans                   # scans a dispatch
+    traj, packets = cs.bench_packets(N_WARM + N_STEADY + N_PROF + K)
     pipe = SlamPipeline(cfg, collect_clouds=False)
-    K = cfg.odom.batch_scans
     for pkt in packets[:N_WARM]:
         pipe.process_scan(*pkt)
     assert pipe.init_done
@@ -93,10 +159,14 @@ def main():
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pkt in packets[N_WARM + N_STEADY:]:
+        for pkt in packets[N_WARM + N_STEADY:-K]:
             pipe.process_scan(*pkt)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    capture = []
+    with cs.capturing(capture):                # one more dispatch
+        for pkt in packets[-K:]:
+            pipe.process_scan(*pkt)
     pipe.flush()
 
     kernels, runtime = [], {}
@@ -114,6 +184,7 @@ def main():
                              "--format=csv,noheader"], capture_output=True,
                             text=True, timeout=60).stdout.strip()
     res = {
+        "moments_kernel": moments_kernel(kernels, capture),
         "card": smi, "kind": torch.cuda.get_device_name(0),
         "config": "bench.py", "batch_scans": K,
         "steady_ms_per_scan": plain_ms,
@@ -132,6 +203,7 @@ def main():
                          "device_ms_per_scan": k[2] / 1e3 / N_PROF}
                         for k in kernels[:15]],
     }
+    res["moments_designs"] = moments_designs(capture)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_slice.json").write_text(json.dumps(res, indent=1))

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -46,7 +47,7 @@ class _Counter:
 
 
 counter = _Counter()
-_lib = None
+_libs = {}          # defines -> loaded library
 
 
 def pack_updates(q: torch.Tensor, nv: torch.Tensor,
@@ -114,17 +115,21 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
+def build(defines=()) -> Path:
     """Compile csrc/moments.cu into build/torch_kernels (once per source
-    content) and return the library path."""
+    content and flags) and return the library path. `defines` are extra
+    ``NAME=VALUE`` macros (VS_TILE, VS_TARGET, VS_TMA_STORE) that select
+    another design of the kernel for measurement; the default is the one
+    `accumulate` uses."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libvs_moments_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(_SRC)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -132,32 +137,49 @@ def build() -> Path:
     return lib
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _library(defines=()):
+    defines = tuple(defines)
+    if defines not in _libs:
+        lib = ctypes.CDLL(str(build(defines)))
         fn = lib.vs_accumulate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib.vs_design.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.vs_design.restype = None
+        _libs[defines] = lib
+    return _libs[defines]
+
+
+def design(defines=()) -> dict:
+    """The built kernel's design: most rows a tile, points a block aims at,
+    bulk-copy store or not, shared bytes per block, and on the current
+    card registers per thread and resident blocks per SM."""
+    d = (ctypes.c_int * 6)()
+    _library(defines).vs_design(d)
+    return dict(tile=d[0], target=d[1], tma_store=bool(d[2]),
+                smem_bytes=d[3], registers=d[4], blocks_per_sm=d[5])
 
 
 def launch(slots: torch.Tensor, upds: torch.Tensor, caps,
-           out: torch.Tensor) -> None:
+           out: torch.Tensor, defines=()) -> None:
     """Run the CUDA kernel into `out` (sum(caps), CH) on the current
-    stream. Inputs must already pass `_check`."""
+    stream. Inputs must already pass `_check`; `defines` picks a build
+    other than the default (see `build`)."""
     L, P = slots.shape
     if (out.device != slots.device or out.dtype != torch.float32
             or tuple(out.shape) != (sum(caps), CH) or not out.is_contiguous()):
         raise ValueError("out must be a contiguous float32 "
                          f"({sum(caps)}, {CH}) tensor on {slots.device}")
+    if (upds.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("upds and out must be 16-byte aligned (float4 rows)")
+    if slots.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {slots.device}")
     caps_arr = (ctypes.c_int * L)(*caps)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().vs_accumulate(
+        err = _library(defines).vs_accumulate(
             slots.data_ptr(), upds.data_ptr(), out.data_ptr(), P, L,
             caps_arr, stream)
     if err != 0:
