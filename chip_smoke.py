@@ -43,7 +43,6 @@ N_WARM, N_STEADY = 22, 40       # bench.py's warm-up and segment length
 N_TIMED = 100                   # calls per timed CUDA graph
 N_REPEAT = 5                    # graph replays per timing median
 FLUSH_BYTES = 128 << 20         # written between calls for cold-L2 times
-EARLIER_MS = 0.512              # the slice-1 kernel on the main path (PERF.md)
 DEFAULT_SHAPES = ((1 << 15, 1 << 16, 1 << 17), 8192)   # MapConfig/OdometryConfig
 
 
@@ -329,8 +328,7 @@ def main():
     t0 = time.perf_counter()
     lib = mo.build()
     mo._library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
-         design=mo.design())
+    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
 
     # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
@@ -390,8 +388,7 @@ def main():
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": "bytes",
         "library_ms": tm["library_ms"], "cold_ms": tm["cold_ms"],
-        "bound_share": tm["bound_ms"] / tm["ms"],
-        "earlier_ms": EARLIER_MS}]}), flush=True)
+        "bound_share": tm["bound_ms"] / tm["ms"]}]}), flush=True)
 
     # 6. last line
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """The moments kernel's wrapper (`voxelslam_tpu_torch.ops.moments`): its
 dispatch and input checks on the CPU, the contract the CUDA kernel is held
-to (ascending-order row sums, exact-zero rows skipped) and a step-by-step
-model of the kernel's algorithm against the plain version, and, on a
-card, the CUDA kernel against its plain version. This file imports no
+to (ascending-order row sums, exact-zero rows skipped), and, on a card,
+the CUDA kernel against its plain version. This file imports no
 JAX, so the card tests run where JAX is absent:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -186,60 +185,6 @@ def test_skipping_zero_rows_is_bitwise_exact(how):
         kept = mo.accumulate_ref(st[l][keep][None].contiguous(),
                                  upd[l][keep][None].contiguous(), (c,))[0]
         assert torch.equal(bits(full[l]), bits(kept))
-
-
-def _kernel_model(slots, upd, caps, target, tile, items, threads=256):
-    """`csrc/moments.cu` step by step in numpy. Level l is cut into tiles
-    of R_l rows (about `target` points a tile, a multiple of 8, at most
-    `tile`). Per tile and pass of threads * items points: A. the points in
-    the tile, in order; B. `threads` list entries at a time, zero rows
-    dropped and the kept ones packed in order; C. 32 kept entries a batch,
-    warp w (of threads / 32) taking the table rows with row % warps == w,
-    the lanes of a group on one row added in lane order."""
-    warps = threads // 32
-    P = slots.shape[1]
-    outs = []
-    for l, c in enumerate(caps):
-        rows = min(max(c * target // P // 8 * 8, 8), tile)
-        table = np.zeros((c, 16), np.float32)
-        for row0 in range(0, c, rows):
-            nrows = min(rows, c - row0)
-            for base in range(0, P, threads * items):
-                pts = np.arange(base, min(base + threads * items, P))
-                r = slots[l, pts].astype(np.int64) - row0
-                inn = (r >= 0) & (r < nrows)
-                lpt, lrow = pts[inn], r[inn]                     # A
-                for e0 in range(0, len(lpt), threads):           # B
-                    sub = slice(e0, e0 + threads)
-                    kept = (upd[l, lpt[sub]] != 0).any(axis=1)
-                    kpt, krow = lpt[sub][kept], lrow[sub][kept]
-                    for k0 in range(0, len(kpt), 32):            # C
-                        for w in range(warps):
-                            batch = [k for k in range(k0, min(k0 + 32,
-                                                              len(kpt)))
-                                     if krow[k] % warps == w]
-                            for k in batch:                      # lane order
-                                t = row0 + krow[k]
-                                table[t] = table[t] + upd[l, kpt[k]]
-        outs.append(table)
-    return outs
-
-
-@pytest.mark.parametrize("name,target,tile,items,threads", [
-    ("small_hot", 32, 256, 16, 256), ("small_hot", 8, 64, 1, 32),
-    ("dropped", 32, 128, 2, 64), ("slot0_signed_zeros", 32, 256, 4, 32),
-    ("cap1032", 1 << 20, 512, 2, 256), ("L8", 16, 64, 1, 64)])
-def test_kernel_algorithm_model_matches_plain(name, target, tile, items,
-                                              threads):
-    """The kernel's algorithm (density-sized tiles, passes, compaction,
-    zero-row skip, sub-passes, per-warp row ownership, lane-order groups)
-    gives the plain version's bits, with tiles, passes and sub-passes small
-    enough that rows and passes split."""
-    slots, upd, caps = _case(name)
-    ref = mo.accumulate_ref(t(slots, torch.int32), t(upd), caps)
-    model = _kernel_model(slots, upd, caps, target, tile, items, threads)
-    for a, b in zip(model, ref):
-        assert torch.equal(bits(torch.from_numpy(a)), bits(b))
 
 
 def _card():

@@ -20,17 +20,11 @@ Then, on the moments kernel (`csrc/moments.cu`) alone:
   4. its device time per call in the profiler's trace of 3., beside its
      time by CUDA events (chip_smoke.time_ms: warm L2, queue full; and
      chip_smoke.cold_ms: L2 flushed between calls) on the inputs of a
-     steady scan's insert, captured in one more dispatch after 3.;
-  5. its designs (`moments.build` macros: rows a tile, points a block,
-     bulk-copy store) on those inputs and at the bench and default
-     shapes: each built beside the others (one nvcc each, started
-     together), checked bitwise against the CPU's index_add_, then timed.
+     steady scan's insert, captured in one more dispatch after 3.
 
 Prints one JSON object and writes it to chiprun_out/profile_slice.json.
 Needs a GPU; exits non-zero without one.
 """
-
-from concurrent.futures import ThreadPoolExecutor
 
 import json
 import os
@@ -43,9 +37,6 @@ sys.path.insert(0, str(ROOT))
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 N_WARM, N_STEADY, N_PROF = 22, 24, 8
-# designs of the moments kernel compared in 5. (() is the one in use)
-DESIGNS = [(), ("VS_TARGET=16",), ("VS_TARGET=64",),
-           ("VS_TARGET=1000000",), ("VS_TILE=512",), ("VS_TMA_STORE=1",)]
 
 
 def moments_kernel(kernels, capture):
@@ -67,35 +58,6 @@ def moments_kernel(kernels, capture):
         "event_us_cold": 1e3 * cs.cold_ms(run, flush),
         "slot_stats": cs.slot_stats(slots, upds, caps),
     }
-
-
-def moments_designs(capture):
-    """5.: every design in DESIGNS on the captured inputs and at the bench
-    and default shapes; microseconds a call, warm L2, queue full."""
-    import torch
-    import chip_smoke as cs
-    from voxelslam_tpu_torch.ops import moments as mo
-    with ThreadPoolExecutor(len(DESIGNS)) as pool:   # one nvcc each
-        list(pool.map(mo.build, DESIGNS))
-    bench = tuple(cs.bench_config().map.capacities)
-    inputs = {"main_path": tuple(capture),
-              "uniform": (*cs.kernel_inputs(bench, 4096, False, 0), bench),
-              "default_config": (*cs.kernel_inputs(*cs.DEFAULT_SHAPES,
-                                                   False, 2),
-                                 cs.DEFAULT_SHAPES[0])}
-    rows = []
-    for d in DESIGNS:
-        row = {"defines": list(d), **mo.design(d)}
-        for name, (slots, upds, caps) in inputs.items():
-            out = torch.empty((sum(caps), mo.CH), device=slots.device)
-            mo.launch(slots, upds, caps, out, d)
-            cpu = mo.accumulate_ref(slots.cpu(), upds.cpu(), caps)
-            same = torch.equal(cs.bits(out), cs.bits(torch.cat(cpu)))
-            us = 1e3 * cs.time_ms(lambda: mo.launch(slots, upds, caps, out,
-                                                    d))
-            row[name] = {"us": us, "bitwise_vs_cpu": same}
-        rows.append(row)
-    return rows
 
 
 def main():
@@ -203,7 +165,6 @@ def main():
                          "device_ms_per_scan": k[2] / 1e3 / N_PROF}
                         for k in kernels[:15]],
     }
-    res["moments_designs"] = moments_designs(capture)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_slice.json").write_text(json.dumps(res, indent=1))

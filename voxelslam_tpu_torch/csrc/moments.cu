@@ -39,24 +39,14 @@
 //    per row bit, and the lowest of them adds the group's rows in lane
 //    order. Each row thus takes its points in ascending index.
 //  * The block writes its tile once, zeros included (the output needs no
-//    memset), with 16-byte coalesced stores, or with VS_TMA_STORE=1 one
-//    bulk copy (cp.async.bulk) from shared memory; PERF.md has both times.
+//    memset), with 16-byte coalesced stores.
 // Measured and not kept (PERF.md): a counting sort of the kept points by
 // row with 4 threads summing each row, thread block clusters sharing one
-// read of the slots, and zero rows stored early.
+// read of the slots, zero rows stored early, one bulk copy (cp.async.bulk)
+// of the tile in place of the coalesced stores, and other TILE and TARGET.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef VS_TILE
-#define VS_TILE 256
-#endif
-#ifndef VS_TARGET
-#define VS_TARGET 32
-#endif
-#ifndef VS_TMA_STORE
-#define VS_TMA_STORE 0
-#endif
 
 namespace {
 
@@ -64,7 +54,8 @@ constexpr int CH = 16;                      // channels per row
 constexpr int MAX_LEVELS = 8;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = VS_TILE;               // most table rows a block
+constexpr int TILE = 256;                   // most table rows a block
+constexpr int TARGET = 32;                  // points a block aims at
 constexpr int ITEMS = 16;                   // slots a thread per pass
 constexpr int CHUNK = THREADS * ITEMS;      // points per pass
 constexpr int SUB = THREADS;                // list entries per sub-pass
@@ -272,24 +263,11 @@ accumulate_kernel(const int* __restrict__ slots,
 
   // the tile, once, zeros included
   float4* out4 = reinterpret_cast<float4*>(out + (row_base + row0) * CH);
-#if VS_TMA_STORE
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  if (tid == 0) {
-    const unsigned saddr = (unsigned)__cvta_generic_to_shared(s_tile);
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        :: "l"(out4), "r"(saddr), "r"(nrows * CH * 4) : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  }
-#else
 #pragma unroll
   for (int pr = 0; pr < PAIRS; ++pr) {
     const int p = tid + pr * THREADS;
     if ((unsigned)(p >> 2) < nrows) out4[p] = s_tile[p];
   }
-#endif
 }
 
 }  // namespace
@@ -312,8 +290,8 @@ extern "C" int vs_accumulate(const int* slots, const float* upds, float* out,
   for (int l = 0; l < L; ++l) {
     const int c = caps_host[l];
     if (c <= 0 || c % 8) return (int)cudaErrorInvalidValue;
-    // about VS_TARGET points a block if the slots spread evenly
-    long long r = (long long)c * VS_TARGET / P / 8 * 8;
+    // about TARGET points a block if the slots spread evenly
+    long long r = (long long)c * TARGET / P / 8 * 8;
     r = r < 8 ? 8 : (r > TILE ? TILE : r);
     caps.cap[l] = c;
     caps.rows[l] = (int)r;
@@ -326,25 +304,4 @@ extern "C" int vs_accumulate(const int* slots, const float* upds, float* out,
   accumulate_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
                       (cudaStream_t)stream>>>(slots, upds, out, P, caps);
   return (int)cudaGetLastError();
-}
-
-// The design of this build: {TILE, VS_TARGET, VS_TMA_STORE, shared bytes
-// per block, registers per thread, resident blocks per SM} (the last two
-// from the current device; -1 where the runtime cannot say).
-extern "C" void vs_design(int* d) {
-  d[0] = TILE;
-  d[1] = VS_TARGET;
-  d[2] = VS_TMA_STORE;
-  d[3] = SMEM_BYTES;
-  d[4] = d[5] = -1;
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, accumulate_kernel) == cudaSuccess)
-    d[4] = a.numRegs;
-  int n = 0;
-  if (cudaFuncSetAttribute(accumulate_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM_BYTES) == cudaSuccess
-      && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &n, accumulate_kernel, THREADS, SMEM_BYTES) == cudaSuccess)
-    d[5] = n;
 }

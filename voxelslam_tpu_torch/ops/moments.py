@@ -21,7 +21,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import torch
@@ -47,7 +46,7 @@ class _Counter:
 
 
 counter = _Counter()
-_libs = {}          # defines -> loaded library
+_lib = None
 
 
 def pack_updates(q: torch.Tensor, nv: torch.Tensor,
@@ -115,21 +114,17 @@ def _nvcc() -> str:
     return found
 
 
-def build(defines=()) -> Path:
+def build() -> Path:
     """Compile csrc/moments.cu into build/torch_kernels (once per source
-    content and flags) and return the library path. `defines` are extra
-    ``NAME=VALUE`` macros (VS_TILE, VS_TARGET, VS_TMA_STORE) that select
-    another design of the kernel for measurement; the default is the one
-    `accumulate` uses."""
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    content) and return the library path."""
     src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libvs_moments_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(_SRC)]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -137,36 +132,23 @@ def build(defines=()) -> Path:
     return lib
 
 
-def _library(defines=()):
-    defines = tuple(defines)
-    if defines not in _libs:
-        lib = ctypes.CDLL(str(build(defines)))
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
         fn = lib.vs_accumulate
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.vs_design.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.vs_design.restype = None
-        _libs[defines] = lib
-    return _libs[defines]
-
-
-def design(defines=()) -> dict:
-    """The built kernel's design: most rows a tile, points a block aims at,
-    bulk-copy store or not, shared bytes per block, and on the current
-    card registers per thread and resident blocks per SM."""
-    d = (ctypes.c_int * 6)()
-    _library(defines).vs_design(d)
-    return dict(tile=d[0], target=d[1], tma_store=bool(d[2]),
-                smem_bytes=d[3], registers=d[4], blocks_per_sm=d[5])
+        _lib = lib
+    return _lib
 
 
 def launch(slots: torch.Tensor, upds: torch.Tensor, caps,
-           out: torch.Tensor, defines=()) -> None:
+           out: torch.Tensor) -> None:
     """Run the CUDA kernel into `out` (sum(caps), CH) on the current
-    stream. Inputs must already pass `_check`; `defines` picks a build
-    other than the default (see `build`)."""
+    stream. Inputs must already pass `_check`."""
     L, P = slots.shape
     if (out.device != slots.device or out.dtype != torch.float32
             or tuple(out.shape) != (sum(caps), CH) or not out.is_contiguous()):
@@ -179,7 +161,7 @@ def launch(slots: torch.Tensor, upds: torch.Tensor, caps,
     caps_arr = (ctypes.c_int * L)(*caps)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library(defines).vs_accumulate(
+        err = _library().vs_accumulate(
             slots.data_ptr(), upds.data_ptr(), out.data_ptr(), P, L,
             caps_arr, stream)
     if err != 0:
