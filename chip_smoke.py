@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   1. device   - nvidia-smi name and power limit, torch device name;
-  2. build    - nvcc builds the moments kernel from csrc/ (sm_90a);
+  2. build    - nvcc builds the moments kernel from csrc/ (sm_90a) while
+                g++ builds the native descriptor store (csrc/btcdb.cpp);
   3. kernel   - the kernel against its plain version at the bench shapes
                 (uniform and adversarial slots) and at the default
                 config's shapes: within tolerance, bitwise repeatable and
@@ -18,8 +19,19 @@ Phases, each printing one JSON line:
                 launch per steady scan, and a second run bitwise equal;
      then the same checks and times on the main path's own inputs
      (the last steady scan's), with their slot statistics per level;
-  5. kernels  - one line listing every kernel with its numbers;
-  6. the last line: {"ok": true, "device": {...}}.
+  5. system   - SlamSystem.process_scan with loop closure on, at bench.py's
+                widths, over the elevator scenario of tests/test_elevator.py
+                (434 scans: a room loop, out onto an open floor and back):
+                a divergence reset, a later session, a cross-session loop
+                edge to session 0, a correction with the position error
+                under 2.5 m at it, finite poses, one kernel launch per
+                steady scan, the native store behind every descriptor DB,
+                and a second run bitwise equal (poses, loop edges,
+                correction scans) up to 10 scans past the first
+                correction; scans/s, ms per steady scan and the
+                synchronised host time of each loop stage per keyframe;
+  6. kernels  - one line listing every kernel with its numbers;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
@@ -44,6 +56,9 @@ N_TIMED = 100                   # calls per timed CUDA graph
 N_REPEAT = 5                    # graph replays per timing median
 FLUSH_BYTES = 128 << 20         # written between calls for cold-L2 times
 DEFAULT_SHAPES = ((1 << 15, 1 << 16, 1 << 17), 8192)   # MapConfig/OdometryConfig
+SYS_ERR_LIMIT = 2.5             # m at a correction (tests/test_elevator.py)
+SYS_TAIL = 10                   # scans the second system run goes past the
+                                # first correction
 
 
 def emit(phase, **kw):
@@ -63,6 +78,32 @@ def bench_config():
                       unique_max=(4096, 4096, 8192), evict_load=0.55),
         odom=OdometryConfig(point_max=4096, imu_max=64, batch_scans=4),
         lba=LocalBAConfig(factor_max=1024))
+
+
+def _elevator():
+    """tools/elevator_trace.py: the scenario and configuration of phase
+    `system`, shared with the trace tools of both packages."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import elevator_trace
+    return elevator_trace
+
+
+def system_config():
+    """bench.py's widths with the loop threshold of tests/test_elevator.py
+    and the default ground BTC profile (LoopPipeline's own)."""
+    from voxelslam_tpu_torch import config
+    return _elevator().system_config(config)
+
+
+def elevator_packets():
+    """The scenario of tests/test_elevator.py:70-130: a bounded room with
+    pillars on an infinite floor; one circle in the room, out the +x side,
+    a U-turn on the open floor, back in and a settling circle; 160x20
+    beams, 0.012 m noise, 25 m range, seed = scan index. Returns (packets,
+    ground-truth positions at mid-scan)."""
+    from voxelslam_tpu_torch.io import simulator
+    return _elevator().elevator_packets(simulator)
 
 
 def bench_packets(n_scans, n_az=160, n_el=24):
@@ -300,6 +341,203 @@ def run_slice(cfg, traj, packets, device, capture=None):
         steady_s=steady_s, peak_bytes=torch.cuda.max_memory_allocated())
 
 
+LOOP_STAGES = ("merge", "extract", "db_search", "verify", "icp", "optimize",
+               "apply_correction", "keyframe_reload")
+
+
+@contextlib.contextmanager
+def stage_timers(times):
+    """While active, every call of a loop stage is clocked on the host with
+    a device synchronise before and after; times[stage] lists seconds."""
+    import torch
+    from voxelslam_tpu_torch.loop import btc
+    from voxelslam_tpu_torch.pipeline import loop, odometry
+    targets = [(loop.LoopPipeline, "_merge_keyframe", "merge"),
+               (loop, "btc_extract", "extract"),
+               (btc.DescriptorDB, "search", "db_search"),
+               (btc.DescriptorDB, "verify", "verify"),
+               (loop, "icp_point_to_plane", "icp"),
+               (loop.LoopPipeline, "_optimize", "optimize"),
+               (odometry.SlamPipeline, "apply_correction", "apply_correction"),
+               (odometry.SlamPipeline, "insert_keyframe_fixed",
+                "keyframe_reload")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return call
+    for (obj, name, key), (_, _, fn) in zip(targets, saved):
+        setattr(obj, name, timed(fn, key))
+    try:
+        yield times
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def _snapshot(sysm, xs, corr_ks):
+    """What the bitwise comparison of two system runs reads, after a scan:
+    every per-scan odometry position so far, the emitted poses (as the
+    loop pipeline has written them back), the loop edges and the scans
+    that applied a correction."""
+    import numpy as np
+    poses = sysm.odom.scan_poses
+    return dict(
+        n=len(xs), x=np.stack(xs),
+        rot=np.array([sp.R for sp in poses]).reshape(-1, 3, 3),
+        pos=np.array([sp.p for sp in poses]).reshape(-1, 3),
+        edges=[(e.id_a, e.id_b, e.ord_a, e.ord_b, e.R.tobytes(),
+                e.t.tobytes()) for e in sysm.loop.lp_edges],
+        corr_ks=list(corr_ks))
+
+
+def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
+    """Drive SlamSystem.process_scan (loop closure on, no GBA) over the
+    packets, or the first `stop` of them; with `times`, clock the loop
+    stages and every call. The returned `snap` is taken after the last
+    scan, or `tail` scans past the first correction when `tail` is set."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.ops import moments as mo
+    from voxelslam_tpu_torch.pipeline.system import SlamSystem
+
+    n = len(packets) if stop is None else stop
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with (stage_timers(times) if times is not None
+          else contextlib.nullcontext()):
+        sysm = SlamSystem(cfg, enable_loop=True, enable_gba=False,
+                          device="cuda")
+        lp = sysm.loop
+        mo.counter.reset()
+        phases, errs, xs, call_s, kf_scan, corr_ks = [], [], [], [], [], []
+        n_steady, snap, snap_at = 0, None, None
+        t_run = time.perf_counter()
+        for k in range(n):
+            n_kf = sum(len(s) for s in lp.keyframes)
+            n_steady += int(sysm.odom.init_done)
+            t0 = time.perf_counter()
+            out = sysm.process_scan(*packets[k])
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+            corr = bool(out.get("loop_correction"))
+            if corr:
+                corr_ks.append(k)
+            kf_scan.append(corr or sum(len(s) for s in lp.keyframes) > n_kf)
+            phases.append(out.get("phase"))
+            xs.append(sysm.odom.x.p.cpu().numpy())
+            errs.append(float(np.linalg.norm(xs[-1] - gt[k])))
+            if corr and tail is not None and snap_at is None:
+                snap_at = k + 1 + tail
+            if k + 1 == snap_at:
+                snap = _snapshot(sysm, xs, corr_ks)
+        run_s = time.perf_counter() - t_run
+        launches = mo.counter.launches
+    poses = sysm.odom.scan_poses
+    steady = [s for s, ph, kf in zip(call_s, phases, kf_scan)
+              if ph == "odom" and not kf]
+    keyed = [s for s, kf in zip(call_s, kf_scan) if kf]
+    # IMU init, init window, dynamic init (done or failed), resets
+    other = [s for s, ph, kf in zip(call_s, phases, kf_scan)
+             if ph != "odom" and not kf]
+    finite = bool(np.isfinite(np.stack(xs)).all() and all(
+        np.isfinite(sp.R).all() and np.isfinite(sp.p).all() for sp in poses))
+    return dict(
+        n=n, phases=phases, session=sysm.odom.session,
+        edges=[(e.id_a, e.id_b, e.ord_a, e.ord_b) for e in lp.lp_edges],
+        corrections=sysm.corrections, corr_ks=corr_ks, errs=errs,
+        launches=launches, n_steady=n_steady, finite=finite,
+        native_dbs=all(db._nat is not None for db in lp.dbs),
+        snap=snap if snap is not None else _snapshot(sysm, xs, corr_ks),
+        n_keyframes=sum(len(s) for s in lp.keyframes),
+        keyframes_per_session=[len(s) for s in lp.keyframes],
+        run_s=run_s, steady_ms=1e3 * float(np.mean(steady)) if steady else None,
+        steady_ms_median=(1e3 * float(np.median(steady)) if steady
+                          else None),
+        keyframe_scan_ms=1e3 * float(np.mean(keyed)) if keyed else None,
+        other_scan_ms=1e3 * float(np.mean(other)) if other else None,
+        n_other=len(other),
+        n_steady_timed=len(steady), n_keyframe_scans=len(keyed),
+        peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def same_snapshot(a, b):
+    """Bitwise equality of two runs' snapshots (see `_snapshot`)."""
+    import numpy as np
+    return (a["n"] == b["n"] and np.array_equal(a["x"], b["x"])
+            and np.array_equal(a["rot"], b["rot"])
+            and np.array_equal(a["pos"], b["pos"])
+            and a["edges"] == b["edges"] and a["corr_ks"] == b["corr_ks"])
+
+
+def system_phase(smi_line):
+    """Phase 5: the full system with loop closure over the elevator
+    scenario, twice; fails the run on any check."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    cfg = system_config()
+    t0 = time.perf_counter()
+    packets, gt = elevator_packets()
+    gen_s = time.perf_counter() - t0
+    times = {}
+    r = run_system(cfg, packets, gt, tail=SYS_TAIL, times=times)
+    r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"])
+    torch.use_deterministic_algorithms(False)
+    identical = same_snapshot(r["snap"], r2["snap"])
+    names = r["phases"]
+    cross0 = [e for e in r["edges"] if e[0] != e[1] and 0 in (e[0], e[1])]
+    err_at = [r["errs"][k] for k in r["corr_ks"]]
+    checks = {
+        "reset": "reset" in names, "later_session": r["session"] >= 1,
+        "cross_session_edge_to_session_0": bool(cross0),
+        "correction": r["corrections"] >= 1 and bool(r["corr_ks"]),
+        "error_at_correction_below_limit": bool(err_at)
+        and min(err_at) < SYS_ERR_LIMIT,
+        "finite": r["finite"], "native_descriptor_store": r["native_dbs"],
+        "one_launch_per_steady_scan": r["launches"] == r["n_steady"] > 0,
+        "second_run_bitwise_equal": identical,
+    }
+    n_kf = max(r["n_keyframes"], 1)
+    stage = {}
+    for k in LOOP_STAGES:
+        ts = times.get(k, [])
+        stage[k] = dict(calls=len(ts), total_s=float(sum(ts)),
+                        ms_per_keyframe=1e3 * float(sum(ts)) / n_kf,
+                        first_ms=1e3 * ts[0] if ts else None,
+                        max_ms=1e3 * max(ts) if ts else None)
+    emit("system", config="bench.py widths, LoopConfig(jud_default=0.45)",
+         scenario="tests/test_elevator.py organic degrade-reset-relocalize",
+         nvidia_smi=smi_line, scans=r["n"], packet_gen_s=gen_s,
+         scans_per_s=r["n"] / r["run_s"], run_s=r["run_s"],
+         ms_per_steady_scan=r["steady_ms"],
+         ms_per_steady_scan_median=r["steady_ms_median"],
+         steady_scans_timed=r["n_steady_timed"],
+         ms_per_keyframe_scan=r["keyframe_scan_ms"],
+         keyframe_scans=r["n_keyframe_scans"], keyframes=r["n_keyframes"],
+         ms_per_init_or_reset_scan=r["other_scan_ms"],
+         init_or_reset_scans=r["n_other"],
+         keyframes_per_session=r["keyframes_per_session"],
+         candidates_verified=stage["verify"]["calls"],
+         icp_calls=stage["icp"]["calls"],
+         corrections=r["corrections"],
+         correction_scans=r["corr_ks"], error_at_corrections_m=err_at,
+         error_limit_m=SYS_ERR_LIMIT, loop_edges=r["edges"],
+         events=[(k, p) for k, p in enumerate(names) if p != "odom"],
+         resets=names.count("reset"),
+         init_failed=names.count("init_failed"), final_session=r["session"],
+         kernel_launches=r["launches"], steady_calls=r["n_steady"],
+         peak_mem_bytes=r["peak_bytes"], stages=stage,
+         second_run_scans=r2["n"], run2_s=r2["run_s"], checks=checks)
+    if not all(checks.values()):
+        fail(f"system checks failed: {checks}")
+
+
 def main():
     import numpy as np
     import torch
@@ -324,11 +562,17 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: nvcc and g++ side by side
+    from concurrent.futures import ThreadPoolExecutor
+    from voxelslam_tpu_torch import native
     t0 = time.perf_counter()
-    lib = mo.build()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(mo.build), pool.submit(native.build)]
+        lib, store = [f.result() for f in builds]
     mo._library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name)
+    native.library()
+    emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
+         descriptor_store=store.name)
 
     # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
@@ -378,8 +622,12 @@ def main():
     err, tm = kernel_phase("main_path", slots, upds, caps_r, flush,
                            slot_stats=slot_stats(slots, upds, caps_r))
     errs.append(err)
+    del flush, slots, upds
 
-    # 5. kernels line
+    # 5. the full system with loop closure
+    system_phase(smi_line)
+
+    # 6. kernels line
     print(json.dumps({"kernels": [{
         "name": "accumulate", "route": "cuda",
         "source": "voxelslam_tpu_torch/csrc/moments.cu",
@@ -390,7 +638,7 @@ def main():
         "library_ms": tm["library_ms"], "cold_ms": tm["cold_ms"],
         "bound_share": tm["bound_ms"] / tm["ms"]}]}), flush=True)
 
-    # 6. last line
+    # 7. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

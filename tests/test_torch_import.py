@@ -1,6 +1,6 @@
 """The port stands alone: importing `voxelslam_tpu_torch` (every module of
-it) pulls in neither JAX nor the JAX package, no file of the port or of
-chip_smoke.py names them, and the pipeline refuses to start without a
+it) pulls in neither JAX nor the JAX package, no file of the port, of
+chip_smoke.py or of the scenario module it imports names them, and the pipeline refuses to start without a
 device when CUDA is absent."""
 
 import pathlib
@@ -41,7 +41,8 @@ def test_import_pulls_in_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
-    + list(PORT.rglob("*.cu")) + [ROOT / "chip_smoke.py"]))
+    + list(PORT.rglob("*.cu")) + list(PORT.rglob("*.cpp"))
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "elevator_trace.py"]))
 def test_sources_name_no_jax(path):
     text = (ROOT / path).read_text()
     for word in ("import jax", "from jax", "voxelslam_tpu."):

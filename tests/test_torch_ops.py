@@ -91,6 +91,24 @@ def test_voxel_downsample_parity():
     np.testing.assert_allclose(n(b[0]), np.asarray(a[0]), atol=1e-5)
 
 
+@pytest.mark.parametrize("n_valid", [3, 400])
+def test_knn_ties_go_to_the_lower_index(n_valid):
+    """Duplicated refs (equal distances at and around the 5th place) and
+    rows with fewer than 5 valid refs (ties at +inf): the same indices as
+    `jax.lax.top_k`, which puts the lower index first."""
+    rng = np.random.default_rng(6)
+    base = rng.integers(-3, 4, (100, 3)).astype(np.float32)
+    ref = base[rng.integers(0, 100, 400)]                # many exact copies
+    rmask = np.zeros(400, np.float32)
+    rmask[rng.permutation(400)[:n_valid]] = 1.0
+    q = rng.integers(-3, 4, (300, 3)).astype(np.float32)
+    ia, da = jknn.knn(jnp.asarray(q), jnp.asarray(ref), jnp.asarray(rmask), 5,
+                      chunk=128)
+    ib, db = knn.knn(t(q), t(ref), t(rmask), 5, chunk=128)
+    np.testing.assert_array_equal(n(ib), np.asarray(ia))
+    np.testing.assert_array_equal(n(db), np.asarray(da))
+
+
 def test_knn_and_plane_fit_parity():
     rng = np.random.default_rng(5)
     ref = rng.uniform(-5, 5, (1500, 3)).astype(np.float32)

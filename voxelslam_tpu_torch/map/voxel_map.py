@@ -7,8 +7,8 @@ Per voxel: state 0 (no plane), 1 (plane leaf: match here), 2 (non-planar:
 descend). Window-frame statistics are local-frame centered clusters per
 (window slot, voxel), window axis major (W, C, ...). Only untracked
 levels (MapConfig.track_touched False, the default) are supported: the
-touched-slot (tsl) variants, `insert_fixed*` and `harvest` belong to
-later slices and raise or are absent.
+touched-slot (tsl) variants and `harvest` belong to later slices and
+raise or are absent.
 
 XLA's drop-mode scatters become writes into a spare row at index C
 (`core.tensors.drop_set/drop_add`); every gather index is clamped or
@@ -271,6 +271,72 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
             lv, keys=tkeys, occ=occ, win=win, win_nv=win_nv, tot=tot,
             tot_nv=tot_nv, jour=jour_arr))
         touched.append((uslots, uvalid & (us >= 0), dropped))
+    return tuple(out), touched
+
+
+def insert_fixed_level(lv: VoxelLevel, level_size: float, unique_max: int,
+                       pts_world, tr_pt, mask, jour):
+    """Insert world-frame points straight into the fixed (marginalized)
+    statistics and the running total: the reference's keyframe-reload
+    `cut_voxel` variant (voxel_map.hpp:2108-2152), used by loop
+    corrections and keyframe loading. Points are summed per unique voxel
+    (U rows), then merged into the claimed slots. Returns (level,
+    touched_slots (U,), touched_valid (U,), dropped)."""
+    C = lv.keys.shape[0]
+    keys = vh.voxel_key(pts_world, level_size)
+    uniq, uvalid, inv = vh.dedup_keys(keys, mask > 0, unique_max)
+    tkeys, occ, uslots = vh.insert(lv.keys, lv.occ, uniq, uvalid)
+    U = uslots.shape[0]
+    nv_pt = expand_noise(tr_pt)
+    inv = inv.long()
+    us = uslots.long()
+    ok = (mask > 0) & (inv >= 0)
+    seg = torch.where(ok, inv, U)
+    w = ok.to(pts_world.dtype)
+    n_add = drop_add(pts_world.new_zeros((U,)), seg, w)
+    sum_p = drop_add(pts_world.new_zeros((U, 3)), seg, pts_world * w[:, None])
+    mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
+    d = (pts_world - mu_add[torch.clamp(inv, 0, U - 1)]) * w[:, None]
+    S_add = drop_add(pts_world.new_zeros((U, 3, 3)), seg,
+                     d[:, :, None] * d[:, None, :])
+    nv_add = drop_add(pts_world.new_zeros((U, NV)), seg, nv_pt * w[:, None])
+
+    row_ok = uvalid & (us >= 0)
+    su = torch.clamp(torch.where(row_ok, us, 0), 0, C - 1)
+    added = Cluster(n=n_add, mu=mu_add, S=S_add)
+    fixed = cl.merge(lv.fix[su], added)
+    total = cl.merge(lv.tot[su], added)      # running world total
+    tgt = torch.where(row_ok, su, C)
+    fix = tmap(lambda full, new: drop_set(full, tgt, new), lv.fix, fixed)
+    tot = tmap(lambda full, new: drop_set(full, tgt, new), lv.tot, total)
+    fix_nv = drop_set(lv.fix_nv, tgt, lv.fix_nv[su] + nv_add)
+    tot_nv = drop_set(lv.tot_nv, tgt, lv.tot_nv[su] + nv_add)
+
+    newly = uvalid & (us >= 0) & ~lv.occ[torch.clamp(us, min=0)]
+    jour_arr = drop_set(lv.jour, torch.where(newly, us, C),
+                        torch.zeros_like(us, dtype=lv.jour.dtype) + jour)
+    lv = dataclasses.replace(lv, keys=tkeys, occ=occ, fix=fix, fix_nv=fix_nv,
+                             tot=tot, tot_nv=tot_nv, jour=jour_arr)
+    dropped = torch.sum((uvalid & (us < 0)).to(torch.int32))
+    return lv, uslots, uvalid & (us >= 0), dropped
+
+
+def insert_fixed(levels, cfg: MapConfig, pts_world, tr_pt, mask, jour=0.0):
+    levels, _ = insert_fixed_touched(levels, cfg, pts_world, tr_pt, mask,
+                                     jour)
+    return levels
+
+
+def insert_fixed_touched(levels, cfg: MapConfig, pts_world, tr_pt, mask,
+                         jour=0.0):
+    """insert_fixed + per-level (slots, valid, dropped) of touched voxels."""
+    out, touched = [], []
+    for l, lv in enumerate(levels):
+        lv2, s, sv, dropped = insert_fixed_level(
+            lv, cfg.level_size(l), cfg.unique_max[l], pts_world, tr_pt,
+            mask, jour)
+        out.append(lv2)
+        touched.append((s, sv, dropped))
     return tuple(out), touched
 
 

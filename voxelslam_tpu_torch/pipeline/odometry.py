@@ -18,8 +18,13 @@ emission: packed per-scan stats gather in a ring that the host reads
 once per `stats_ring` scans, and `batch_scans` queued scans run as one
 K-step call.
 
-Not ported in this slice: loop-closure hooks (`apply_correction`,
-`insert_keyframe_fixed`, `_g_reloc`), `lba.mgsize > 1` (`_mega_accum`).
+The loop-closure hooks are here too: `apply_correction` (a loop
+correction rebuilds the live map from keyframes and the corrected window,
+with the gravity-joint `_g_reloc` after a cross-session first contact)
+and `insert_keyframe_fixed` (mid-term keyframe reload); with
+`collect_clouds=True` every emitted ScanPose carries its scan's cloud.
+
+Not ported yet: `lba.mgsize > 1` (`_mega_accum`, `_process_steady_accum`).
 The JAX package's `_pin_window_layouts` pins XLA TPU memory layouts and
 has no counterpart here.
 """
@@ -399,6 +404,38 @@ class SlamPipeline:
         return dataclasses.replace(
             states, R=R_al[None] @ states.R, p=(states.p - p0[None]) @ R_al.T,
             v=states.v @ R_al.T, g=target.expand(states.g.shape).clone())
+
+    def _g_reloc(self, levels, win, preints, mp, win_count):
+        """Gravity-joint window re-optimization after a g_update loop
+        correction (the reference's LI_BA_OptimizerGravity with 5
+        iterations, voxelslam.cpp:1366-1367, 1956-1965) on the rebuilt
+        map, over the valid window prefix; dead frames and pairs masked."""
+        cfg = self.cfg
+        W = cfg.lba.win_size
+        dev = self.device
+        factors = vm.harvest_t(levels, cfg.map, mp, cfg.lba.factor_max)
+        wmask = (torch.arange(W, device=dev) < win_count).to(torch.float32)
+        pmask = (torch.arange(W - 1, device=dev)
+                 < win_count - 1).to(torch.float32)
+        new_win, _, r0, r1, _ = opt.lm_li_gravity(
+            win, factors, preints, wmask, imu_coef=cfg.lba.imu_coef,
+            max_iter=5, pair_mask=pmask)
+        return new_win, r0, r1
+
+    def _push_fixed(self, levels, pts_world, mask, jour):
+        tr = pts_world.new_zeros((pts_world.shape[0],))
+        return vm.insert_fixed(levels, self.cfg.map, pts_world, tr, mask,
+                               jour)
+
+    def _push_fixed_refresh(self, levels, pts_world, mask, jour, win, mp,
+                            win_count):
+        """insert_fixed + plane refresh of the touched voxels (a keyframe
+        reloaded in the steady phase must give matchable planes at once)."""
+        tr = pts_world.new_zeros((pts_world.shape[0],))
+        levels, touched = vm.insert_fixed_touched(
+            levels, self.cfg.map, pts_world, tr, mask, jour)
+        return vm.refresh_planes(levels, self.cfg.map, win.R, win.p, mp,
+                                 win_count, touched=touched)
 
     def _occ_counts(self, levels):
         return torch.stack([torch.sum(lv.occ) for lv in levels])
@@ -809,6 +846,71 @@ class SlamPipeline:
             out["evicted"] = evicted
             out["evict_dropped"] = evict_dropped
         return out
+
+    def apply_correction(self, dx_R: np.ndarray, dx_p: np.ndarray,
+                         g_update: bool, map_keyframes) -> None:
+        """Apply a loop-closure correction between scans (reference
+        loop_update, voxelslam.cpp:1255-1373): left-multiply the window by
+        dx, rebuild the live map from the keyframes (fixed points) plus the
+        corrected window scans, reset the slot indirection, and after a
+        cross-session first contact (g_update) re-optimize the window
+        with gravity. The emitted ScanPoses were already moved by the loop
+        pipeline (shared objects)."""
+        self._flush_pending()   # emit the pre-correction state first
+        cfg = self.cfg
+        W = cfg.lba.win_size
+        dR = self._t(dx_R)
+        dp = self._t(dx_p)
+        win = self.win
+        new_g = dR @ win.g[0] if g_update else win.g[0]
+        win = dataclasses.replace(
+            win, R=dR[None] @ win.R, p=win.p @ dR.T + dp[None],
+            v=win.v @ dR.T, g=new_g.expand(win.g.shape).clone())
+        self.win = win
+        self.mp = torch.arange(W, dtype=torch.int32, device=self.device)
+        nvalid = self.win_count
+
+        self.levels = vm.empty_map(cfg.map, self.device)
+        for kf in map_keyframes:
+            wld = kf.cloud @ kf.R0.T + kf.p0
+            self.levels = self._push_fixed(self.levels, self._t(wld),
+                                           self._t(kf.mask), self.jour)
+        for i in range(nvalid):
+            self.levels = self._push_window(
+                self.levels, win[i], self._t(self.scan_buf[i]),
+                self._t(self.scan_mask[i]), self._t(self.scan_tr[i]),
+                self.mp[i], self.jour)
+        self.levels = self._refresh(self.levels, win, self.mp, nvalid)
+
+        if (g_update and self.init_done and nvalid >= 2
+                and getattr(self, "preints_dev", None) is not None):
+            # preints_dev entry k is pair (k, k+1); stale tail entries
+            # (>= nvalid - 1) are masked inside _g_reloc
+            new_win, _, _ = self._g_reloc(self.levels, win, self.preints_dev,
+                                          self.mp, nvalid)
+            sel = torch.arange(W, device=self.device) < nvalid
+            win = tmap(lambda a, b: torch.where(
+                sel.reshape((-1,) + (1,) * (a.dim() - 1)), a, b), new_win, win)
+            win = dataclasses.replace(
+                win, g=new_win.g[0].expand(win.g.shape).clone())
+            self.win = win
+            self._gravity = new_win.g[0]
+            self.levels = self._refresh(self.levels, win, self.mp, nvalid)
+
+        self.x = dataclasses.replace(
+            win[max(nvalid - 1, 0)], cov=self.x.cov, t=self.x.t,
+            bg=self.x.bg, ba=self.x.ba)
+        if self._last_p is not None:
+            self._last_p = np.asarray(dx_R @ self._last_p + dx_p)
+
+    def insert_keyframe_fixed(self, kf) -> None:
+        """Mid-term association: fold one historical keyframe cloud into
+        the live map as fixed statistics (reference keyframe_loading,
+        voxelslam.cpp:1379-1438), refreshing the touched planes."""
+        wld = kf.cloud @ kf.R0.T + kf.p0
+        self.levels = self._push_fixed_refresh(
+            self.levels, self._t(wld), self._t(kf.mask), self.jour,
+            self.win, self.mp, self.win_count)
 
     def flush(self):
         """Emit the remaining window states as ScanPoses (end of run)."""
