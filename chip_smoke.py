@@ -26,12 +26,36 @@ Phases, each printing one JSON line:
                 edge to session 0, a correction with the position error
                 under 2.5 m at it, finite poses, one kernel launch per
                 steady scan, the native store behind every descriptor DB,
-                and a second run bitwise equal (poses, loop edges,
-                correction scans) up to 10 scans past the first
-                correction; scans/s, ms per steady scan and the
+                and a second run bitwise equal (poses, loop edges, GBA
+                edges and submaps, correction scans) until 10 scans past
+                the first correction; scans/s, ms per steady scan and the
                 synchronised host time of each loop stage per keyframe;
-  6. kernels  - one line listing every kernel with its numbers;
-  7. the last line: {"ok": true, "device": {...}}.
+     with GBA on in both runs (`enable_gba=True`): the first run ends
+     with finish() (bottom-up flush, total BA, top-down solve): windows,
+     edges, submaps, the seconds of the total BA and the top-down solve,
+     and the position error of the scans of every session linked to
+     session 0, before and after finish(); poses finite, top-down ran;
+  6. sessions - save() of the first system run's last session and its
+                reload through SlamSystem(previous_maps=[...]): floor(
+                scans / win_size) keyframes, a reloaded keyframe's BTC
+                query finds a candidate, alidarState.txt reads back;
+  7. slice_mg2 - phase 4's packets with lba.mgsize = 2 (a BA burst every
+                second scan, refill scans between): ATE < 0.10 m, one
+                kernel launch per steady or refill scan, a second run
+                bitwise equal;
+  8. gba_window - HbaRunner at SlamSystem's widths (8,192-point
+                keyframes, GBAConfig defaults), streamed, flushed, then
+                the total BA, over 30 keyframes of tests/test_gba.py's
+                scene (as a user runs it) and twice over 30 of
+                bench_gba.py's synthetic corridor (under deterministic
+                algorithms): ms per window, rounds, host reads, peak
+                memory of each; kernel launches, host syncs and device
+                busy time of one profiled window of each; on the scene
+                every window lowers its residual and the relative-pose
+                error falls below half its input (see `gba_phase` for why
+                not on the corridor); the corridor runs bitwise equal;
+  9. kernels  - one line listing every kernel with its numbers;
+  10. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
@@ -59,6 +83,7 @@ DEFAULT_SHAPES = ((1 << 15, 1 << 16, 1 << 17), 8192)   # MapConfig/OdometryConfi
 SYS_ERR_LIMIT = 2.5             # m at a correction (tests/test_elevator.py)
 SYS_TAIL = 10                   # scans the second system run goes past the
                                 # first correction
+GBA_KF, GBA_P = 30, 8192        # phase gba_window: keyframes, points each
 
 
 def emit(phase, **kw):
@@ -314,7 +339,7 @@ def run_slice(cfg, traj, packets, device, capture=None):
     with (capturing(capture) if capture is not None
           else contextlib.nullcontext()):
         pipe = SlamPipeline(cfg, collect_clouds=False, device=device)
-        phases, n_steady = [], 0
+        phases, n_steady, refills = [], 0, 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mo.counter.reset()
@@ -324,7 +349,9 @@ def run_slice(cfg, traj, packets, device, capture=None):
                 torch.cuda.synchronize()
                 t_steady = time.perf_counter()
             n_steady += int(pipe.init_done)
-            phases.append(pipe.process_scan(*pkt).get("phase"))
+            out = pipe.process_scan(*pkt)
+            phases.append(out.get("phase"))
+            refills += int(bool(out.get("accum")))
         torch.cuda.synchronize()
         steady_s = time.perf_counter() - t_steady
         pipe.flush()
@@ -335,14 +362,303 @@ def run_slice(cfg, traj, packets, device, capture=None):
     gt = np.stack([traj.state_at(sp.t)[1] for sp in poses])
     return dict(
         phases=phases, init_done=pipe.init_done, n_steady=n_steady,
-        launches=launches, poses=len(poses), est=est, rot=rot,
+        refills=refills, launches=launches, poses=len(poses), est=est, rot=rot,
         finite=bool(np.isfinite(est).all() and np.isfinite(rot).all()),
         ate=float(ate_rmse(est, gt)), steady_scans=len(packets) - N_WARM,
         steady_s=steady_s, peak_bytes=torch.cuda.max_memory_allocated())
 
 
+def slice_mg2_phase(cfg, traj, packets):
+    """Phase slice_mg2: the slice's packets with lba.mgsize = 2, twice.
+    Returns the first run's kernel launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    cfg2 = dataclasses.replace(cfg, lba=dataclasses.replace(cfg.lba,
+                                                            mgsize=2))
+    torch.use_deterministic_algorithms(True)
+    runs = [run_slice(cfg2, traj, packets, "cuda") for _ in range(2)]
+    torch.use_deterministic_algorithms(False)
+    r = runs[0]
+    bad = [p for p in r["phases"] if p in ("reset", "init_failed")]
+    checks = {
+        "init_done": r["init_done"], "no_reset": not bad,
+        "finite": r["finite"], "ate_below_limit": r["ate"] < ATE_LIMIT,
+        "refill_scans": r["refills"] > 0,
+        "one_launch_per_steady_or_refill_scan":
+            r["launches"] == r["n_steady"] > 0,
+        "two_runs_bitwise_equal": bool(
+            np.array_equal(r["est"], runs[1]["est"])
+            and np.array_equal(r["rot"], runs[1]["rot"])),
+    }
+    emit("slice_mg2", config="bench.py, lba.mgsize=2", scans=len(packets),
+         steady_scans=r["steady_scans"], refill_scans=r["refills"],
+         emitted_poses=r["poses"], ate_m=r["ate"], ate_limit_m=ATE_LIMIT,
+         ms_per_scan=1e3 * r["steady_s"] / r["steady_scans"],
+         run2_ms_per_scan=1e3 * runs[1]["steady_s"] / r["steady_scans"],
+         peak_mem_bytes=r["peak_bytes"], kernel_launches=r["launches"],
+         steady_calls=r["n_steady"], checks=checks)
+    if not all(checks.values()):
+        fail(f"slice_mg2 checks failed: {checks}")
+    return r["launches"]
+
+
+def corridor_keyframes(n, P, seed=0):
+    """bench_gba.py's synthetic corridor keyframes, copied (bench_gba.py
+    imports the JAX package): two side walls and a floor, true poses
+    R = I, p = (0.8 i, 0, 1.2), the stored p0 off by 0.03 m noise.
+    Returns (keyframes, true (R, p) per keyframe)."""
+    import numpy as np
+    from voxelslam_tpu_torch.pipeline.loop import Keyframe
+    rng = np.random.default_rng(seed)
+    n_wall = P // 3
+    base = np.concatenate([
+        np.stack([rng.uniform(-15, 15, n_wall), np.full(n_wall, 4.0),
+                  rng.uniform(0, 3, n_wall)], -1),
+        np.stack([rng.uniform(-15, 15, n_wall), np.full(n_wall, -4.0),
+                  rng.uniform(0, 3, n_wall)], -1),
+        np.stack([rng.uniform(-15, 15, P - 2 * n_wall),
+                  rng.uniform(-4, 4, P - 2 * n_wall),
+                  np.zeros(P - 2 * n_wall)], -1),
+    ]).astype(np.float32)
+    kfs, truth = [], []
+    for i in range(n):
+        p0 = np.array([0.8 * i, 0.0, 1.2])
+        body = (base - p0 + rng.normal(0, 0.01, base.shape)).astype(
+            np.float32)
+        kfs.append(Keyframe(
+            kf_index=i, scan_id=i, session=0, R0=np.eye(3),
+            p0=p0 + rng.normal(0, 0.03, 3), cloud=body,
+            mask=np.ones(P, np.float32), jour=float(i)))
+        truth.append((np.eye(3), p0))
+    return kfs, truth
+
+
+def scene_keyframes(n, P, seed=3, perturb=0.02):
+    """tests/test_gba.py's keyframes: the simulator's scene sampled at 10
+    points/m^2, keyframes along a line with a turning yaw, each cloud the
+    scene within 18 m seen from the true pose, the stored poses (after the
+    first) perturbed by `perturb` rad and 4 * `perturb` m. Returns
+    (keyframes, true (R, p) per keyframe)."""
+    import numpy as np
+    from voxelslam_tpu_torch.io import simulator as sim
+    from voxelslam_tpu_torch.pipeline.loop import Keyframe
+    rng = np.random.default_rng(seed)
+    world = sim.sample_scene(sim.make_scene(), per_m2=10.0, seed=seed,
+                             noise=0.01)
+    kfs, truth = [], []
+    for i in range(n):
+        yaw = 0.08 * i
+        R0 = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                       [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+        p0 = np.array([0.6 * i, 0.25 * i, 1.0])
+        near = world[np.linalg.norm(world - p0, axis=1) < 18.0]
+        sub = near[rng.permutation(len(near))[:P]]
+        cloud = np.zeros((P, 3), np.float32)
+        mask = np.zeros((P,), np.float32)
+        cloud[:len(sub)] = (sub - p0) @ R0
+        mask[:len(sub)] = 1.0
+        Rk, pk = R0, p0
+        if i > 0:
+            Rk = R0 @ sim._exp(rng.normal(0, perturb, 3))
+            pk = p0 + rng.normal(0, perturb * 4, 3)
+        kfs.append(Keyframe(kf_index=i, scan_id=i, session=0, R0=Rk, p0=pk,
+                            cloud=cloud, mask=mask, jour=float(i)))
+        truth.append((R0, p0))
+    return kfs, truth
+
+
+def run_gba(kfs):
+    """Stream the keyframes through an HbaRunner at SlamSystem's widths
+    (its defaults), flush, then the total BA; synchronised clocks."""
+    import torch
+    from voxelslam_tpu_torch.config import SlamConfig
+    from voxelslam_tpu_torch.gba import HbaRunner
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = HbaRunner(SlamConfig(), device="cuda")
+    outs, call_ms = [], []
+    t0 = time.perf_counter()
+    for kf in kfs + [None]:
+        t1 = time.perf_counter()
+        out = runner.add_keyframe(kf) if kf is not None else runner.flush()
+        torch.cuda.synchronize()
+        if out is not None:
+            outs.append(out)
+            call_ms.append(1e3 * (time.perf_counter() - t1))
+    stream_s = time.perf_counter() - t0
+    n_windows, stream_syncs = len(runner.window_log), runner.host_syncs
+    t0 = time.perf_counter()
+    total = runner.total_ba()
+    torch.cuda.synchronize()
+    return dict(runner=runner, outs=outs, call_ms=call_ms, stream_s=stream_s,
+                n_windows=n_windows, stream_syncs=stream_syncs, total=total,
+                total_s=time.perf_counter() - t0,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def profile_window(runner, kfs):
+    """One more window BA over `kfs` (`_run_window`, read at once), twice:
+    under the CUDA sync debug mode, which warns at every call that makes
+    the host wait for the card (the explicit reads included), and under
+    torch.profiler: kernels launched, device busy time, wall time. Each
+    run reports its rounds (`sync_rounds`, `rounds`)."""
+    import warnings
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    W = len(kfs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner._run_window(kfs, W)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_rounds = runner.window_log[-1]["rounds"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    sources = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            sources[at] = sources.get(at, 0) + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner._run_window(kfs, W)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            launches += e.count
+            dev = getattr(e, "self_device_time_total", None)
+            busy_us += dev if dev is not None else getattr(
+                e, "self_cuda_time_total", 0)
+    rounds = runner.window_log[-1]["rounds"]
+    return dict(rounds=rounds, sync_rounds=sync_rounds,
+                host_syncs=sum(sources.values()),
+                sync_sources=dict(sorted(sources.items(),
+                                         key=lambda kv: -kv[1])[:12]),
+                explicit_reads=runner.window_log[-1]["syncs"] + 1,
+                kernel_launches=launches, launches_per_round=launches / rounds,
+                profiled_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / wall)
+
+
+def gba_snapshot(runner):
+    """What the bitwise comparison of two GBA runs reads: every edge and
+    submap."""
+    return ([(e.id_a, e.id_b, e.ord_a, e.ord_b, e.R.tobytes(), e.t.tobytes(),
+              e.v6.tobytes()) for e in runner.edges1 + runner.edges2],
+            [(s.scan_id, s.R0.tobytes(), s.p0.tobytes(), s.cloud.tobytes(),
+              s.mask.tobytes()) for s in runner.submaps])
+
+
+def consecutive_error(pairs, truth):
+    """Mean |relative position - truth| over (ord_a, ord_b, R_a^T dp) of
+    consecutive keyframes; truth holds the true (R, p) of each."""
+    import numpy as np
+    return float(np.mean([
+        np.linalg.norm(t - truth[a][0].T @ (truth[b][1] - truth[a][1]))
+        for a, b, t in pairs if b == a + 1]))
+
+
+def gba_summary(r, kfs, truth):
+    """What phase gba_window reports of one run_gba result, and its
+    checks."""
+    import numpy as np
+    runner = r["runner"]
+    g = runner.cfg.gba
+    n_win = r["n_windows"]
+    log = runner.window_log[:n_win]
+    wins = [o for o in r["outs"] if o.get("r0") is not None]
+    tot = r["total"]
+    e_in = consecutive_error([(a.scan_id, b.scan_id, a.R0.T @ (b.p0 - a.p0))
+                              for a, b in zip(kfs[:-1], kfs[1:])], truth)
+    e_out = consecutive_error([(e.ord_a, e.ord_b, e.t)
+                               for e in runner.edges1], truth)
+    edges = runner.edges1 + runner.edges2
+    out = dict(
+        keyframes=len(kfs), windows=n_win,
+        ms_per_window=1e3 * r["stream_s"] / n_win, call_ms=r["call_ms"],
+        rounds=[w["rounds"] for w in log], phases=[w["phases"] for w in log],
+        explicit_host_reads_per_window=r["stream_syncs"] / n_win,
+        window_r0=[w["r0"] for w in wins], window_r1=[w["r1"] for w in wins],
+        edges1=len(runner.edges1), edges2=len(runner.edges2),
+        submaps=len(runner.submaps), total_ba=tot, total_ba_s=r["total_s"],
+        total_ba_rounds=runner.window_log[n_win]["rounds"],
+        rel_err_in_m=e_in, rel_err_out_m=e_out,
+        peak_mem_bytes=r["peak_bytes"])
+    checks = dict(
+        windows=n_win == (len(kfs) - g.win_size) // g.stride + 1
+        == len(wins) == len(runner.submaps),
+        finite=all(np.isfinite(e.t).all() and np.isfinite(e.R).all()
+                   for e in edges),
+        r1_below_r0_every_window=all(w["r1"] < w["r0"] for w in wins)
+        and tot is not None and tot["r1"] < tot["r0"],
+        rel_pose_error_below_half_input=e_out < 0.5 * e_in)
+    return out, checks
+
+
+def gba_phase(smi_line):
+    """Phase gba_window: tests/test_gba.py's keyframes through the global
+    BA as a user runs it (times, one profiled window, accuracy), then
+    bench_gba.py's corridor keyframes twice under deterministic algorithms
+    (times, one profiled window, bitwise equality); fails the run on any
+    check.
+
+    The corridor has no structure along its axis (x), so a keyframe's x is
+    fixed by nothing there: the window BA of the JAX package on these very
+    keyframes (on the CPU, `tools/gba_corridor_check.py`) drifts by metres
+    in x and ends above its first residual. Its residuals and errors are
+    reported, and the accuracy checks of tests/test_gba.py:85 are held on
+    that test's own scene."""
+    import torch
+    scene, s_truth = scene_keyframes(GBA_KF, GBA_P)
+    corridor, c_truth = corridor_keyframes(GBA_KF, GBA_P)
+    sc = run_gba(scene)
+    W = sc["runner"].cfg.gba.win_size
+    s_prof = profile_window(sc["runner"], scene[:W])
+    torch.use_deterministic_algorithms(True)
+    det = [run_gba(corridor), run_gba(corridor)]
+    c_prof = profile_window(det[0]["runner"], corridor[:W])
+    torch.use_deterministic_algorithms(False)
+    s_out, s_checks = gba_summary(sc, scene, s_truth)
+    c_out, c_checks = gba_summary(det[0], corridor, c_truth)
+    checks = {
+        "scene_windows": s_checks["windows"], "scene_finite": s_checks["finite"],
+        "scene_r1_below_r0_every_window":
+            s_checks["r1_below_r0_every_window"],
+        "scene_rel_pose_error_below_half_input":
+            s_checks["rel_pose_error_below_half_input"],
+        "corridor_windows": c_checks["windows"],
+        "corridor_finite": c_checks["finite"],
+        "corridor_two_runs_bitwise_equal":
+            gba_snapshot(det[0]["runner"]) == gba_snapshot(det[1]["runner"]),
+    }
+    emit("gba_window", nvidia_smi=smi_line,
+         config="SlamSystem's HbaRunner widths: kf_point_max 8192, capacity "
+                "8192, unique_max 4096, factor_max 1024 (total BA 2048), "
+                "GBAConfig()", points=GBA_P,
+         scene=dict(s_out, source="tests/test_gba.py make_keyframes",
+                    deterministic_algorithms=False, window_profile=s_prof),
+         corridor=dict(c_out, source="bench_gba.py make_keyframes",
+                       deterministic_algorithms=True,
+                       run2_ms_per_window=1e3 * det[1]["stream_s"]
+                       / det[1]["n_windows"], window_profile=c_prof,
+                       unchecked={k: c_checks[k] for k in (
+                           "r1_below_r0_every_window",
+                           "rel_pose_error_below_half_input")}),
+         checks=checks)
+    if not all(checks.values()):
+        fail(f"gba_window checks failed: {checks}")
+
+
 LOOP_STAGES = ("merge", "extract", "db_search", "verify", "icp", "optimize",
-               "apply_correction", "keyframe_reload")
+               "apply_correction", "keyframe_reload", "gba_window",
+               "total_ba", "top_down")
 
 
 @contextlib.contextmanager
@@ -350,6 +666,7 @@ def stage_timers(times):
     """While active, every call of a loop stage is clocked on the host with
     a device synchronise before and after; times[stage] lists seconds."""
     import torch
+    from voxelslam_tpu_torch.gba import hba
     from voxelslam_tpu_torch.loop import btc
     from voxelslam_tpu_torch.pipeline import loop, odometry
     targets = [(loop.LoopPipeline, "_merge_keyframe", "merge"),
@@ -360,7 +677,10 @@ def stage_timers(times):
                (loop.LoopPipeline, "_optimize", "optimize"),
                (odometry.SlamPipeline, "apply_correction", "apply_correction"),
                (odometry.SlamPipeline, "insert_keyframe_fixed",
-                "keyframe_reload")]
+                "keyframe_reload"),
+               (hba.HbaRunner, "_window_step", "gba_window"),
+               (hba.HbaRunner, "total_ba", "total_ba"),
+               (hba.HbaRunner, "top_down", "top_down")]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
 
     def timed(fn, key):
@@ -384,8 +704,8 @@ def stage_timers(times):
 def _snapshot(sysm, xs, corr_ks):
     """What the bitwise comparison of two system runs reads, after a scan:
     every per-scan odometry position so far, the emitted poses (as the
-    loop pipeline has written them back), the loop edges and the scans
-    that applied a correction."""
+    loop pipeline has written them back), the loop edges, the GBA's edges
+    and submaps so far and the scans that applied a correction."""
     import numpy as np
     poses = sysm.odom.scan_poses
     return dict(
@@ -394,14 +714,30 @@ def _snapshot(sysm, xs, corr_ks):
         pos=np.array([sp.p for sp in poses]).reshape(-1, 3),
         edges=[(e.id_a, e.id_b, e.ord_a, e.ord_b, e.R.tobytes(),
                 e.t.tobytes()) for e in sysm.loop.lp_edges],
-        corr_ks=list(corr_ks))
+        gba=gba_snapshot(sysm.gba), corr_ks=list(corr_ks))
 
 
-def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
-    """Drive SlamSystem.process_scan (loop closure on, no GBA) over the
+def linked_to_0(edges):
+    """Sessions joined to session 0 by cross-session loop edges."""
+    linked, grew = {0}, True
+    while grew:
+        grew = False
+        for e in edges:
+            if e.id_a != e.id_b and (e.id_a in linked) != (e.id_b in linked):
+                linked |= {e.id_a, e.id_b}
+                grew = True
+    return sorted(linked)
+
+
+def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
+               traj=None, savepath=None):
+    """Drive SlamSystem.process_scan (loop closure and GBA on) over the
     packets, or the first `stop` of them; with `times`, clock the loop
     stages and every call. The returned `snap` is taken after the last
-    scan, or `tail` scans past the first correction when `tail` is set."""
+    scan, or `tail` scans past the first correction when `tail` is set.
+    With `traj` (the ground truth) the run ends with finish(), and the
+    position errors of the scans of the sessions linked to session 0 are
+    taken before and after it."""
     import numpy as np
     import torch
     from voxelslam_tpu_torch.ops import moments as mo
@@ -412,8 +748,8 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
     torch.cuda.reset_peak_memory_stats()
     with (stage_timers(times) if times is not None
           else contextlib.nullcontext()):
-        sysm = SlamSystem(cfg, enable_loop=True, enable_gba=False,
-                          device="cuda")
+        sysm = SlamSystem(cfg, enable_loop=True, enable_gba=True,
+                          savepath=savepath, device="cuda")
         lp = sysm.loop
         mo.counter.reset()
         phases, errs, xs, call_s, kf_scan, corr_ks = [], [], [], [], [], []
@@ -439,6 +775,9 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
                 snap = _snapshot(sysm, xs, corr_ks)
         run_s = time.perf_counter() - t_run
         launches = mo.counter.launches
+        if snap is None:
+            snap = _snapshot(sysm, xs, corr_ks)
+        fin = finish_system(sysm, traj) if traj is not None else None
     poses = sysm.odom.scan_poses
     steady = [s for s, ph, kf in zip(call_s, phases, kf_scan)
               if ph == "odom" and not kf]
@@ -454,7 +793,7 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
         corrections=sysm.corrections, corr_ks=corr_ks, errs=errs,
         launches=launches, n_steady=n_steady, finite=finite,
         native_dbs=all(db._nat is not None for db in lp.dbs),
-        snap=snap if snap is not None else _snapshot(sysm, xs, corr_ks),
+        snap=snap,
         n_keyframes=sum(len(s) for s in lp.keyframes),
         keyframes_per_session=[len(s) for s in lp.keyframes],
         run_s=run_s, steady_ms=1e3 * float(np.mean(steady)) if steady else None,
@@ -464,7 +803,38 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None):
         other_scan_ms=1e3 * float(np.mean(other)) if other else None,
         n_other=len(other),
         n_steady_timed=len(steady), n_keyframe_scans=len(keyed),
-        peak_bytes=torch.cuda.max_memory_allocated())
+        peak_bytes=torch.cuda.max_memory_allocated(), finish=fin,
+        sysm=sysm if traj is not None else None,
+        gba=dict(windows=len(sysm.gba.window_log),
+                 rounds=[w["rounds"] for w in sysm.gba.window_log],
+                 edges1=len(sysm.gba.edges1), edges2=len(sysm.gba.edges2),
+                 submaps=len(sysm.gba.submaps),
+                 host_reads=sysm.gba.host_syncs))
+
+
+def finish_system(sysm, traj):
+    """finish() with synchronised clocks, and the position error against
+    the ground truth of every scan of the sessions linked to session 0,
+    emitted before finish(), before and after it (top-down writes the
+    same ScanPose objects back)."""
+    import numpy as np
+    import torch
+    lp = sysm.loop
+    linked = linked_to_0(lp.lp_edges)
+    sps = [sp for s in linked for sp in lp.scan_poses[s]]
+    truth = np.stack([traj.state_at(sp.t)[1] for sp in sps])
+    before = np.linalg.norm(np.stack([sp.p for sp in sps]) - truth, axis=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysm.finish()
+    torch.cuda.synchronize()
+    finish_s = time.perf_counter() - t0
+    after = np.linalg.norm(np.stack([sp.p for sp in sps]) - truth, axis=1)
+    return dict(finish_s=finish_s, linked_sessions=linked, scans=len(sps),
+                err_before_mean_m=float(before.mean()),
+                err_before_max_m=float(before.max()),
+                err_after_mean_m=float(after.mean()),
+                err_after_max_m=float(after.max()))
 
 
 def same_snapshot(a, b):
@@ -473,20 +843,89 @@ def same_snapshot(a, b):
     return (a["n"] == b["n"] and np.array_equal(a["x"], b["x"])
             and np.array_equal(a["rot"], b["rot"])
             and np.array_equal(a["pos"], b["pos"])
-            and a["edges"] == b["edges"] and a["corr_ks"] == b["corr_ks"])
+            and a["edges"] == b["edges"] and a["gba"] == b["gba"]
+            and a["corr_ks"] == b["corr_ks"])
+
+
+def sessions_phase(sysm, cfg):
+    """Phase sessions: save() the system's last session under a temporary
+    savepath inside build/, reload it into a new system; fails the run on
+    any check."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.io import sessions as ses
+    from voxelslam_tpu_torch.loop import btc
+    from voxelslam_tpu_torch.pipeline.system import SlamSystem
+    name = "elevator_last"
+    sps = sysm.loop.scan_poses[sysm.loop.cur_session]
+    t0 = time.perf_counter()
+    sysm.save(name)
+    save_s = time.perf_counter() - t0
+    back = ses.read_lidarstate(os.path.join(sysm.savepath, name,
+                                            "alidarState.txt"))
+    # the file's precision: 6 decimals of t, 7 of p and of the quaternion;
+    # the quaternion is of the rotation nearest the stored R, a product of
+    # f32 rotations that is off SO(3) by up to about 1e-5
+    drift = {k: max((float(np.abs(np.asarray(getattr(a, k))
+                                - np.asarray(getattr(b, k))).max())
+                     for a, b in zip(back, sps)), default=0.0)
+             for k in ("t", "p", "R")}
+    reads_back = (len(back) == len(sps) and drift["t"] <= 1e-6
+                  and drift["p"] <= 1e-6 and drift["R"] <= 5e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    re = SlamSystem(cfg, enable_loop=True, previous_maps=[name],
+                    savepath=sysm.savepath, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    kfs = re.loop.keyframes[0]
+    W = cfg.lba.win_size
+    cands = []
+    if kfs:
+        kf = kfs[0]
+        dev = re.loop.device
+        desc = btc.extract(torch.as_tensor(kf.cloud, device=dev),
+                           torch.as_tensor(kf.mask, device=dev),
+                           re.loop.btc_cfg)
+        cands = re.loop.dbs[0].search(
+            {k: v.cpu().numpy() for k, v in desc.items()}, skip_near=-1,
+            current_frame=1 << 30)
+    checks = {
+        "keyframes_floor_scans_over_win": len(kfs) == len(sps) // W >= 1,
+        "reloaded_keyframe_btc_candidate": bool(cands),
+        "alidarstate_reads_back": reads_back,
+        "live_session_after_reload": re.loop.cur_session == 1
+        and re.session_names == [name, "live1"],
+    }
+    emit("sessions", session=sysm.loop.cur_session, scans=len(sps),
+         keyframes=len(kfs), db_frames=len(re.loop.dbs[0].frames),
+         candidates=len(cands), save_s=save_s, reload_s=load_s,
+         readback_max_dev=drift, checks=checks)
+    if not all(checks.values()):
+        fail(f"sessions checks failed: {checks}")
 
 
 def system_phase(smi_line):
-    """Phase 5: the full system with loop closure over the elevator
-    scenario, twice; fails the run on any check."""
+    """Phase 5: the full system with loop closure and GBA over the
+    elevator scenario, twice, and phase 6 on the first run; fails the run
+    on any check."""
+    import tempfile
     import torch
+    from voxelslam_tpu_torch.io import simulator
     torch.use_deterministic_algorithms(True)
     cfg = system_config()
     t0 = time.perf_counter()
     packets, gt = elevator_packets()
+    traj = _elevator().elevator_trajectory(simulator)
     gen_s = time.perf_counter() - t0
     times = {}
-    r = run_system(cfg, packets, gt, tail=SYS_TAIL, times=times)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_sessions_",
+                                     dir=build) as savepath:
+        r = run_system(cfg, packets, gt, tail=SYS_TAIL, times=times,
+                       traj=traj, savepath=savepath)
+        sessions_phase(r.pop("sysm"), cfg)
     r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"])
     torch.use_deterministic_algorithms(False)
     identical = same_snapshot(r["snap"], r2["snap"])
@@ -502,6 +941,7 @@ def system_phase(smi_line):
         "finite": r["finite"], "native_descriptor_store": r["native_dbs"],
         "one_launch_per_steady_scan": r["launches"] == r["n_steady"] > 0,
         "second_run_bitwise_equal": identical,
+        "top_down_ran": len(times.get("top_down", [])) == 1,
     }
     n_kf = max(r["n_keyframes"], 1)
     stage = {}
@@ -533,9 +973,11 @@ def system_phase(smi_line):
          init_failed=names.count("init_failed"), final_session=r["session"],
          kernel_launches=r["launches"], steady_calls=r["n_steady"],
          peak_mem_bytes=r["peak_bytes"], stages=stage,
-         second_run_scans=r2["n"], run2_s=r2["run_s"], checks=checks)
+         gba=r["gba"], finish=r["finish"], second_run_scans=r2["n"],
+         run2_s=r2["run_s"], run2_gba=r2["gba"], checks=checks)
     if not all(checks.values()):
         fail(f"system checks failed: {checks}")
+    return r["launches"]
 
 
 def main():
@@ -624,21 +1066,26 @@ def main():
     errs.append(err)
     del flush, slots, upds
 
-    # 5. the full system with loop closure
-    system_phase(smi_line)
+    # the main path's runs, each counted from 0: the slice, mgsize = 2
+    # and the full system (GBA launches no moments kernel)
+    launches = {"slice": r["launches"],
+                "system": system_phase(smi_line),
+                "slice_mg2": slice_mg2_phase(cfg, traj, packets)}
+    gba_phase(smi_line)
 
-    # 6. kernels line
+    # kernels line
     print(json.dumps({"kernels": [{
         "name": "accumulate", "route": "cuda",
         "source": "voxelslam_tpu_torch/csrc/moments.cu",
         "replaces": "voxelslam_tpu/ops/moments.py:103",
-        "launches": r["launches"], "max_abs_err": max(errs),
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max(errs),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": "bytes",
         "library_ms": tm["library_ms"], "cold_ms": tm["cold_ms"],
         "bound_share": tm["bound_ms"] / tm["ms"]}]}), flush=True)
 
-    # 7. last line
+    # last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -38,6 +38,12 @@ def system_config(cm):
         loop=cm.LoopConfig(jud_default=0.45))
 
 
+def elevator_trajectory(sim):
+    """The scenario's ground-truth trajectory, from simulator module `sim`."""
+    return sim.make_waypoint_trajectory(LEGS, speed=1.5, still=0.4,
+                                        ramp=1.0, wobble=0.0, z_amp=0.04)
+
+
 def elevator_packets(sim, n=None):
     """The scenario's packets and mid-scan ground-truth positions (the first
     `n` scans, or all 434), made with simulator module `sim`."""
@@ -55,8 +61,7 @@ def elevator_packets(sim, n=None):
         sx, sy = rng.uniform(0.5, 1.2, 2)
         sz = rng.uniform(1.2, 4.0)
         scene = scene + sim.box_scene((px, py, -1.5 + sz / 2), (sx, sy, sz))
-    traj = sim.make_waypoint_trajectory(LEGS, speed=1.5, still=0.4,
-                                        ramp=1.0, wobble=0.0, z_amp=0.04)
+    traj = elevator_trajectory(sim)
     n_scans = int((sum(d for d, _ in LEGS) - 1.0) / 0.1)
     packets, gt, t = [], [], 0.1
     for k in range(n_scans if n is None else min(n, n_scans)):

@@ -1,6 +1,7 @@
-"""Levenberg-Marquardt for the sliding window (port of `lm_li` and
-`lm_li_gravity` of `voxelslam_tpu/ba/optimizers.py`; the reference
-LI_BA_Optimizer[Gravity], voxel_map.hpp:342-976).
+"""Levenberg-Marquardt for the sliding window (port of
+`voxelslam_tpu/ba/optimizers.py`: `lm_lidar`, the LiDAR-only 6-DoF LM of
+the global BA, and `lm_li`/`lm_li_gravity`; the reference
+Lidar_BA_Optimizer and LI_BA_Optimizer[Gravity], voxel_map.hpp:342-976).
 
 Nielsen damping (voxel_map.hpp:422-497), gauge fixed by pinning the
 first frame. The JAX `while_loop` becomes `max_iter` fixed trips whose
@@ -13,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..core import so3
 from ..core.state import NavState, DIM
 from ..core.tensors import tmap
 from ..imu import preintegration as pre
@@ -23,10 +25,12 @@ GRAVITY_NORM = 9.81
 
 
 def _solve_scaled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Solve H dx = -g with Jacobi scaling (f32 LU, as the JAX package)."""
+    """Solve H dx = -g with Jacobi scaling (f32 LU, as the JAX package).
+    `solve_ex` without its error check: `linalg.solve` reads the LU's info
+    back to the host, a sync per call on the card."""
     d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
     Hs = H / d[:, None] / d[None, :]
-    dx = torch.linalg.solve(Hs, -(g / d))
+    dx = torch.linalg.solve_ex(Hs, -(g / d))[0]
     return dx / d
 
 
@@ -43,6 +47,54 @@ def _gauge_fix(H: torch.Tensor, g: torch.Tensor, dim: int):
 def _nielsen_update(u, rho):
     q = 1.0 - (2.0 * rho - 1.0) ** 3
     return u * torch.clamp(q, min=1.0 / 3.0)
+
+
+def lm_lidar(Rs, ps, factors, win_mask, max_iter: int = 3, u0: float = 0.01):
+    """LiDAR-only LM over (W,) poses (Rs (W,3,3), ps (W,3)); factors a
+    FactorBatch or the factor-minor tuple. Dead frames (win_mask 0) are
+    pinned by an identity diagonal, so their update is exactly zero.
+    Returns (Rs, ps, H, r0, r1, conv)."""
+    W = Rs.shape[0]
+    if isinstance(factors, lf.FactorBatch):
+        factors = lf.transpose_factors(factors)
+    H, g = lf.hess_grad_ct_t(factors, Rs, ps, win_mask)
+    r0 = lf.cost_t(factors, Rs, ps, win_mask)
+    dead_diag = torch.diag(torch.repeat_interleave(1.0 - win_mask, 6))
+
+    dev, dtype = Rs.device, Rs.dtype
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    u = torch.full((), u0, dtype=dtype, device=dev)      # no host copy
+    v = torch.full((), 2.0, dtype=dtype, device=dev)
+    r1 = r0
+    conv = torch.ones((), dtype=torch.bool, device=dev)
+    for _ in range(max_iter):
+        live = it < max_iter
+        Hf, gf = _gauge_fix(H, g, 6)
+        Hf = Hf + dead_diag
+        Dg = torch.diagonal(Hf)
+        dx = _solve_scaled(Hf + u * torch.diag(Dg), gf)
+        dxw = dx.reshape(W, 6)
+        Rs_n = Rs @ so3.exp(dxw[:, 0:3])
+        ps_n = ps + dxw[:, 3:6]
+        q1 = 0.5 * torch.dot(dx, u * (Dg * dx) - gf)
+        r2 = lf.cost_t(factors, Rs_n, ps_n, win_mask)
+        q = r1 - r2
+        accept = q > 0
+        rho = q / torch.clamp(q1, min=1e-20)
+        u_acc = _nielsen_update(u, rho)
+        acc_live = live & accept
+        Rs = torch.where(acc_live, Rs_n, Rs)
+        ps = torch.where(acc_live, ps_n, ps)
+        H_n, g_n = lf.hess_grad_ct_t(factors, Rs, ps, win_mask)
+        H = torch.where(acc_live, H_n, H)
+        g = torch.where(acc_live, g_n, g)
+        done_tol = torch.abs(q / torch.clamp(r1, min=1e-20)) < _REL_TOL
+        r1 = torch.where(acc_live, r2, r1)
+        u = torch.where(live, torch.where(accept, u_acc, u * v), u)
+        v = torch.where(live, torch.where(accept, 2.0, 2.0 * v), v)
+        conv = torch.where(live, conv & accept, conv)
+        it = torch.where(live, torch.where(done_tol, max_iter, it + 1), it)
+    return Rs, ps, H, r0, r1, conv
 
 
 def _block_place(blocks, mask2d, W: int):
@@ -174,8 +226,8 @@ def lm_li(states: NavState, factors, preints: pre.Preint, win_mask,
         dead_diag[:W * DIM] = torch.repeat_interleave(1.0 - win_mask, DIM)
 
     it = torch.zeros((), dtype=torch.int64, device=dev)
-    u = torch.tensor(u0, dtype=dtype, device=dev)
-    v = torch.tensor(2.0, dtype=dtype, device=dev)
+    u = torch.full((), u0, dtype=dtype, device=dev)      # no host copy
+    v = torch.full((), 2.0, dtype=dtype, device=dev)
     r1 = r0
     conv = torch.ones((), dtype=torch.bool, device=dev)
     for _ in range(max_iter):

@@ -9,7 +9,14 @@ its dataclass field names (for example `dataclasses.asdict` over
          Cluster fields nested under win / fix / tot], "win": NavState
          fields (W,), "mp": (W,) int, "preints_dev": Preint fields (W-1,)}
 
-`SlamPipeline.load_carry` installs the result. Nothing here imports JAX.
+`SlamPipeline.load_carry` installs the result.
+
+The loop and global-BA records (`Keyframe`, `LoopEdge`) are host numpy on
+both sides; `keyframes_from_numpy`, `edges_from_numpy` and
+`load_hba_state` rebuild the port's from the JAX package's records as
+field dicts (`dataclasses.asdict`), so a port `HbaRunner` can resume from a
+JAX runner's `submaps`, `edges1`, `edges2` and `_pending`. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -60,3 +67,36 @@ def carry_from_numpy(d: dict, device="cpu") -> dict:
         "mp": _tensor("mp", d["mp"], device),
         "preints_dev": from_numpy(Preint, d["preints_dev"], device),
     }
+
+
+def _records(cls, recs: list[dict]) -> list:
+    return [cls(**{f.name: (np.array(r[f.name])
+                            if isinstance(r[f.name], np.ndarray)
+                            else r[f.name])
+                   for f in dataclasses.fields(cls)}) for r in recs]
+
+
+def keyframes_from_numpy(recs: list[dict]) -> list:
+    """Field dicts of the JAX package's Keyframes -> the port's
+    `pipeline.loop.Keyframe` list (arrays copied)."""
+    from .pipeline.loop import Keyframe
+    return _records(Keyframe, recs)
+
+
+def edges_from_numpy(recs: list[dict]) -> list:
+    """Field dicts of the JAX package's LoopEdges -> the port's
+    `pipeline.loop.LoopEdge` list (arrays copied)."""
+    from .pipeline.loop import LoopEdge
+    return _records(LoopEdge, recs)
+
+
+def load_hba_state(runner, d: dict) -> None:
+    """Install a JAX HbaRunner's host state into the port's `runner`:
+    d = {"submaps": [Keyframe dicts], "edges1": [LoopEdge dicts],
+    "edges2": [...], "_pending": [Keyframe dicts]}. Nothing may be in
+    flight on either side (call `drain` on the JAX runner first)."""
+    runner.submaps = keyframes_from_numpy(d["submaps"])
+    runner.edges1 = edges_from_numpy(d["edges1"])
+    runner.edges2 = edges_from_numpy(d["edges2"])
+    runner._pending = keyframes_from_numpy(d["_pending"])
+    runner._inflight_step = runner._inflight_cond = None

@@ -81,8 +81,9 @@ def eigh3(A: torch.Tensor):
     w = eigvalsh3(A)
     scale = torch.clamp(torch.amax(torch.abs(w), dim=-1), min=1e-30)
 
-    v2 = _eigvec_for(A, w[..., [0, 1]])
-    v0 = _eigvec_for(A, w[..., [1, 2]])
+    # slices, not index lists: a list index is a host-to-device copy
+    v2 = _eigvec_for(A, w[..., 0:2])
+    v0 = _eigvec_for(A, w[..., 1:3])
 
     gap_lo = (w[..., 1] - w[..., 0]) / scale
     gap_hi = (w[..., 2] - w[..., 1]) / scale

@@ -1,3 +1,3 @@
-from . import simulator
+from . import sessions, simulator
 
-__all__ = ["simulator"]
+__all__ = ["sessions", "simulator"]

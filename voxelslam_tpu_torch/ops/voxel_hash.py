@@ -122,7 +122,7 @@ def insert(table_keys: torch.Tensor, occ: torch.Tensor,
     keys_p = torch.cat([table_keys, table_keys.new_zeros((1, 3))])
     keys_p[tgt] = queries.to(table_keys.dtype)
     occ_p = torch.cat([occ, occ.new_zeros((1,))])
-    occ_p[tgt] = True
+    occ_p.index_fill_(0, tgt, True)        # a scalar fill, no host copy
     return keys_p[:C], occ_p[:C], slot.to(torch.int32)
 
 

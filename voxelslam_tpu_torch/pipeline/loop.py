@@ -109,6 +109,8 @@ class LoopPipeline:
         self.jours: list[float] = []
         self.relc_counts: list[int] = []
         self.lp_edges: list[LoopEdge] = []
+        # edge.txt lines naming sessions not loaded, kept for the next save
+        self._edge_absent_lines: list[str] = []
         self.graph_ids: list[int] = []      # sessions in the optimized graph
         self._bl_local: list = []           # pending window for keyframes
         self._x_key = None                  # last keyframe pose (R, p)

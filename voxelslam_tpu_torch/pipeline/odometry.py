@@ -24,9 +24,10 @@ with the gravity-joint `_g_reloc` after a cross-session first contact)
 and `insert_keyframe_fixed` (mid-term keyframe reload); with
 `collect_clouds=True` every emitted ScanPose carries its scan's cloud.
 
-Not ported yet: `lba.mgsize > 1` (`_mega_accum`, `_process_steady_accum`).
-The JAX package's `_pin_window_layouts` pins XLA TPU memory layouts and
-has no counterpart here.
+With `lba.mgsize > 1` a BA burst marginalizes `mgsize` frames, and the
+window refills over the next `mgsize - 1` scans through `_mega_accum`
+(no BA), as in the JAX package. The JAX package's `_pin_window_layouts`
+pins XLA TPU memory layouts and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -99,8 +100,6 @@ class SlamPipeline:
 
     def __init__(self, cfg: SlamConfig, collect_clouds: bool = False,
                  device=None):
-        if cfg.lba.mgsize != 1:
-            raise NotImplementedError("lba.mgsize > 1 is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         # when False, skip the per-scan device->host cloud fetch
@@ -150,7 +149,10 @@ class SlamPipeline:
         self._last_p = None
         self._pending = None
         self._ring_K = 1 if self.collect_clouds else max(1, cfg.odom.stats_ring)
-        self._batch_K = 1 if self.collect_clouds else max(1, cfg.odom.batch_scans)
+        # K-scan dispatch only in the plain steady flow: cloud collection
+        # and mgsize > 1 decide on the host between scans
+        self._batch_K = (1 if self.collect_clouds or cfg.lba.mgsize > 1
+                         else max(1, cfg.odom.batch_scans))
         self._scan_queue: list = []
         self._stats_len = 5 + 31 * cfg.lba.mgsize + 1
         self._stats_ring = torch.zeros((self._ring_K, self._stats_len),
@@ -354,6 +356,43 @@ class SlamPipeline:
             trs.append(tr)
         return (state, levels, win, mp, preints, ring, torch.stack(downs),
                 torch.stack(dmasks), torch.stack(trs))
+
+    def _mega_accum(self, state, levels, win, mp, preints, imu_blob,
+                    scan_blob, scal, frame_idx: int):
+        """Window-refill scan for lba.mgsize > 1: propagate + deskew +
+        downsample + preintegrate + iEKF + fused insert into logical slot
+        `frame_idx` + touched refresh, with no BA (the reference optimizes
+        only once the window is full, voxelslam.cpp:1951)."""
+        cfg = self.cfg
+        imu_ts, gyr, acc, imask = (imu_blob[:, 0], imu_blob[:, 1:4],
+                                   imu_blob[:, 4:7], imu_blob[:, 7])
+        pts, offsets, pmask = scan_blob[:, 0:3], scan_blob[:, 3], scan_blob[:, 4]
+        scan_beg, scan_end, last_end, jour = scal[0], scal[1], scal[2], scal[3]
+
+        x_prop, body = self._prop_deskew(state, imu_ts, gyr, acc, imask,
+                                         scan_beg, scan_end, last_end, pts,
+                                         offsets, pmask)
+        down, dmask, var_b, tr = self._downsample_var(body, pmask)
+        _, _, _, p_new = self._preint_interval(imu_ts, gyr, acc, imask,
+                                               last_end, scan_end,
+                                               x_prop.bg, x_prop.ba)
+        preints = tmap(lambda a, b: _set_row(a, frame_idx - 1, b), preints,
+                       p_new)
+        st, ok, diag = iekf.iekf_update(
+            x_prop, levels, cfg.map, down, var_b, dmask,
+            max_iter=cfg.odom.max_iter, degrade_eig=cfg.odom.degrade_eig)
+        win = tmap(lambda a, b: _set_row(a, frame_idx, b), win, st)
+        wld = down @ st.R.T + st.p
+        levels, touched = vm.insert_scan_fused(
+            levels, cfg.map, wld, down, tr, dmask, mp[frame_idx], jour, st.R,
+            st.p)
+        levels = vm.refresh_planes(levels, cfg.map, win.R, win.p, mp,
+                                   frame_idx + 1, touched=touched)
+        dropped = torch.sum(torch.stack([t[2] for t in touched]))
+        f32 = torch.float32
+        stats = torch.stack([ok.to(f32), diag["matches"].to(f32),
+                             diag["nnt_eig"][0], dropped.to(f32)])
+        return st, levels, win, preints, stats, down, dmask, tr
 
     def _init_round(self, scans, masks, trs, states, imu_g, imu_a, imu_dt,
                     imu_m, min_eig, plane_thr):
@@ -665,12 +704,21 @@ class SlamPipeline:
         if self._batch_K > 1:
             return self._process_steady_batched(imu_np, scan_np, t_beg, t_end,
                                                 last_end)
+        imu_blob, scan_blob = self._t(imu_np), self._t(scan_np)
         scal = self._t([t_beg, t_end, last_end, self.jour,
                         float(self._ring_fill)])
+        if self.cfg.lba.mgsize > 1:
+            # the refill decision needs an up-to-date win_count
+            out = self._flush_pending()
+            if out is not None and out.get("phase") == "reset":
+                return out
+            if self.win_count < self.cfg.lba.win_size - 1:
+                return self._process_steady_accum(imu_blob, scan_blob, scal,
+                                                  t_end)
         (x_out, levels, win_next, mp_new, preints, ring, down, dmask, tr) = \
             self._steady_megastep(self.x, self.levels, self.win, self.mp,
                                   self.preints_dev, self._stats_ring,
-                                  self._t(imu_np), self._t(scan_np), scal)
+                                  imu_blob, scan_blob, scal)
         self.x, self.levels, self.win, self.mp = x_out, levels, win_next, mp_new
         self.preints_dev = preints
         self._stats_ring = ring
@@ -744,6 +792,33 @@ class SlamPipeline:
                          np.stack([_np(r[1]) for r in rows]) if cc else None,
                          np.stack([_np(r[2]) for r in rows]) if cc else None,
                          np.stack([_np(r[3]) for r in rows]) if cc else None)
+
+    def _process_steady_accum(self, imu_blob, scan_blob, scal, t_end):
+        """Window-refill scan (lba.mgsize > 1, win_count < W-1): one
+        accumulate step, its stats read at once (no BA, no emission)."""
+        cfg = self.cfg
+        i = self.win_count
+        (x_out, levels, win, preints, stats, down, dmask, tr) = \
+            self._mega_accum(self.x, self.levels, self.win, self.mp,
+                             self.preints_dev, imu_blob, scan_blob, scal, i)
+        self.x, self.levels, self.win = x_out, levels, win
+        self.preints_dev = preints
+        self.scan_count += 1
+        if self.collect_clouds:
+            self.scan_buf[i] = _np(down)
+            self.scan_mask[i] = _np(dmask)
+            self.scan_tr[i] = _np(tr)
+        self.win_count = i + 1
+        st = _np(stats)
+        ok = bool(st[0] > 0)
+        self.degrade_cnt = max(0, self.degrade_cnt - 1) if ok \
+            else self.degrade_cnt + 1
+        if self.degrade_cnt > cfg.odom.degrade_bound:
+            self.reset(session=self.session + 1)
+            return {"phase": "reset", "session": self.session}
+        return {"phase": "odom", "ok": ok, "matches": int(st[1]),
+                "nnt_eig0": float(st[2]), "t": t_end, "accum": True,
+                "hash_dropped": int(st[3])}
 
     def _flush_pending(self):
         """Emit all deferred state: the pending batch, queued scans and a
