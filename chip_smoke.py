@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line:
   1. device   - nvidia-smi name and power limit, torch device name;
   2. build    - nvcc builds the moments kernel from csrc/ (sm_90a) while
-                g++ builds the native descriptor store (csrc/btcdb.cpp);
+                g++ builds the native descriptor store (csrc/btcdb.cpp)
+                and the scan ingest and loader (csrc/ingest.cpp,
+                csrc/loader.cpp);
   3. kernel   - the kernel against its plain version at the bench shapes
                 (uniform and adversarial slots) and at the default
                 config's shapes: within tolerance, bitwise repeatable and
@@ -54,8 +56,23 @@ Phases, each printing one JSON line:
                 every window lowers its residual and the relative-pose
                 error falls below half its input (see `gba_phase` for why
                 not on the corridor); the corridor runs bitwise equal;
-  9. kernels  - one line listing every kernel with its numbers;
-  10. the last line: {"ok": true, "device": {...}}.
+  9. cli      - `python -m voxelslam_tpu_torch run DIR --preset hesai --gba
+                --save-dir S --export-map m.ply --export-traj t.tum`, called
+                in-process as cli.main, over a recorded Hesai dataset
+                written from phase slice's scene (150 scans, 32 beams, the
+                points in the LiDAR frame through the preset's extrinsic)
+                at the hesai preset's full width: rc 0, ATE < 0.10 m from
+                the TUM file, one kernel launch per steady scan, the
+                session reloads, the PLY parses, the native loader's
+                packets equal the inline path's; scans/s, the ms a scan
+                waited on the loader, host decode ms a scan; then `export`
+                of the saved session and `info hesai`;
+  10. checkpoint - SlamSystem on phase cli's packets, saved with a GBA
+                window in flight, continued 20 scans; restored on the card
+                it continues bitwise equal, restored on the CPU within
+                5e-3; save and load seconds, the file's bytes;
+  11. kernels - one line listing every kernel with its numbers;
+  12. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
@@ -84,6 +101,14 @@ SYS_ERR_LIMIT = 2.5             # m at a correction (tests/test_elevator.py)
 SYS_TAIL = 10                   # scans the second system run goes past the
                                 # first correction
 GBA_KF, GBA_P = 30, 8192        # phase gba_window: keyframes, points each
+# phase cli: 150 scans at 10 Hz of a 32-beam spinning LiDAR (the
+# PandarXT-32's channels); 240 azimuths give 7,680 rays a scan, which the
+# hesai preset's 0.1 m downsample keeps nearly whole, under point_max 8192
+CLI_SCANS, CLI_AZ, CLI_EL = 150, 240, 32
+CKPT_TAIL = 20                  # scans each system continues past the save
+POSE_TOL = 5e-3                 # m and rotation entries, CPU against the card
+                                # (tests/test_torch_system.py)
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
 def emit(phase, **kw):
@@ -980,6 +1005,337 @@ def system_phase(smi_line):
     return r["launches"]
 
 
+def write_hesai_dataset(d, n_scans, n_az, n_el):
+    """Phase slice's box room and trajectory as a recorded dataset in the
+    layout of `voxelslam_tpu_torch.cli` (scans at 10 Hz from t = 0.1 s):
+    a 200 Hz `imu.txt`, `scans.txt`, and one structured .npy a scan with
+    the Hesai fields x y z (f4), intensity (f4), absolute timestamp (f8)
+    and ring (u2). The simulator's points are in the IMU frame; they are
+    written in the LiDAR frame through the hesai preset's extrinsic,
+    p_lidar = R_ext^T (p_imu - t_ext). Returns (trajectory, hit rays per
+    scan)."""
+    import numpy as np
+    from voxelslam_tpu_torch.config import preset
+    from voxelslam_tpu_torch.io import simulator as sim
+    cfg = preset("hesai")
+    R_ext = np.asarray(cfg.extrinsic_R, np.float64).reshape(3, 3)
+    t_ext = np.asarray(cfg.extrinsic_t, np.float64)
+    traj = sim.make_trajectory(duration=0.2 + 0.1 * (n_scans + 2), speed=1.2,
+                               wobble=0.25, yaw_rate=0.3, ramp=1.2)
+    normals, dsp = sim.box_room(half_extent=(14.0, 12.0, 3.5),
+                                center=(4.0, 0.0, 1.0))
+    dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                   ("intensity", "<f4"), ("timestamp", "<f8"),
+                   ("ring", "<u2")])
+    rng = np.random.default_rng(0)
+    os.makedirs(d, exist_ok=True)
+    rows, hits = [], []
+    for k in range(n_scans):
+        t = 0.1 + 0.1 * k
+        scan = sim.lidar_scan(traj, t, t + 0.1, normals, dsp, n_az=n_az,
+                              n_el=n_el, noise=0.01, seed=k)
+        hit = scan["hit"]
+        rec = np.zeros(int(hit.sum()), dt)
+        pts = (scan["points"][hit] - t_ext) @ R_ext
+        rec["x"], rec["y"], rec["z"] = pts.T
+        rec["intensity"] = rng.uniform(0, 255, len(rec))
+        rec["timestamp"] = t + scan["offsets"][hit]
+        rec["ring"] = (np.arange(n_az * n_el) % n_el)[hit]
+        name = f"scan_{k:06d}.npy"
+        np.save(os.path.join(d, name), rec)
+        rows.append(f"{t:.9f} {t + 0.1:.9f} {name}\n")
+        hits.append(len(rec))
+    with open(os.path.join(d, "scans.txt"), "w") as f:
+        f.writelines(rows)
+    ts = np.arange(0.0, 0.1 * (n_scans + 1) + 0.05, 1.0 / 200.0)
+    imu = np.array([np.concatenate([[ti], *traj.imu_at(ti)]) for ti in ts])
+    np.savetxt(os.path.join(d, "imu.txt"), imu, fmt="%.17g")
+    return traj, hits
+
+
+def same_packets(a, b):
+    """iter_dataset packets equal (the native loader gives no intensity)."""
+    import numpy as np
+    return len(a) == len(b) > 0 and all(
+        np.array_equal(p["scan"][k], q["scan"][k])
+        for p, q in zip(a, b) for k in ("points", "offsets", "t_beg", "t_end")
+    ) and all(np.array_equal(p[k], q[k]) for p, q in zip(a, b)
+              for k in ("imu_ts", "imu_gyr", "imu_acc"))
+
+
+@contextlib.contextmanager
+def cli_probes(rec):
+    """While active, every `ScanLoader.__next__` call records how long the
+    consumer waited in `rec["waits"]`, and every `SlamSystem.process_scan`
+    is clocked (device synchronised after it) into `rec["call_s"]`, with
+    its phase, whether it made a keyframe, the system, the steady calls
+    and the moments launches so far kept in `rec`."""
+    import torch
+    from voxelslam_tpu_torch import native
+    from voxelslam_tpu_torch.ops import moments as mo
+    from voxelslam_tpu_torch.pipeline.system import SlamSystem
+    real_next, real_scan = native.ScanLoader.__next__, SlamSystem.process_scan
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        try:
+            return real_next(self)
+        finally:
+            rec["waits"].append(time.perf_counter() - t0)
+
+    def counted_scan(self, *a):
+        if "t0" not in rec:
+            torch.cuda.synchronize()
+            rec["t0"] = time.perf_counter()
+        rec["system"] = self
+        rec["n_steady"] += int(self.odom.init_done)
+        n_kf = sum(len(k) for k in self.loop.keyframes)
+        t0 = time.perf_counter()
+        out = real_scan(self, *a)
+        torch.cuda.synchronize()
+        rec["t1"] = time.perf_counter()
+        rec["call_s"].append(rec["t1"] - t0)
+        rec["keyframe"].append(sum(len(k) for k in self.loop.keyframes)
+                               > n_kf)
+        rec["launches"] = mo.counter.launches
+        rec["phases"].append(out.get("phase"))
+        return out
+    rec.update(waits=[], n_steady=0, phases=[], call_s=[], keyframe=[])
+    native.ScanLoader.__next__ = timed_next
+    SlamSystem.process_scan = counted_scan
+    try:
+        yield rec
+    finally:
+        native.ScanLoader.__next__ = real_next
+        SlamSystem.process_scan = real_scan
+
+
+def ply_vertices(path):
+    """The vertex count a binary xyz PLY's header states, if its size
+    matches it; else None."""
+    with open(path, "rb") as f:
+        data = f.read()
+    head, sep, body = data.partition(b"end_header\n")
+    n = [int(ln.split()[-1]) for ln in head.split(b"\n")
+         if ln.startswith(b"element vertex")]
+    ok = (sep and head.startswith(b"ply\n") and len(n) == 1
+          and len(body) == 12 * n[0])
+    return n[0] if ok else None
+
+
+def cli_phase(smi_line):
+    """Phase cli: `cli.main(["run", ...])` over a recorded Hesai dataset at
+    the hesai preset's full width, loop closure and GBA on, on the card;
+    then `export` and `info hesai`. Fails the run on any check. Returns
+    (the moments launches of the run, the run's packets, its config)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch import cli
+    from voxelslam_tpu_torch.config import preset
+    from voxelslam_tpu_torch.io import sessions as ses
+    from voxelslam_tpu_torch.ops import moments as mo
+    from voxelslam_tpu_torch.ops.downsample import voxel_downsample
+    from voxelslam_tpu_torch.utils.metrics import ate_rmse
+    cfg = preset("hesai")
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli_", dir=OUT) as d:
+        ds = os.path.join(d, "dataset")
+        t0 = time.perf_counter()
+        traj, hits = write_hesai_dataset(ds, CLI_SCANS, CLI_AZ, CLI_EL)
+        write_s = time.perf_counter() - t0
+        # host only: the native loader against the inline path
+        t0 = time.perf_counter()
+        nat = list(cli.iter_dataset(ds, "hesai"))
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inline = list(cli.iter_dataset(ds, "hesai", use_native=False))
+        inline_s = time.perf_counter() - t0
+        save, tum, ply = (os.path.join(d, n) for n in
+                          ("maps", "run.tum", "map.ply"))
+        argv = ["run", ds, "--preset", "hesai", "--gba", "--save-dir", save,
+                "--export-map", ply, "--export-traj", tum]
+        lines, rec = [], {}
+        mo.counter.reset()
+        with cli_probes(rec):
+            rc = cli.main(argv, log=lines.append)
+        sysm, n = rec["system"], len(rec["phases"])
+        kinds = {"steady": [], "keyframe": [], "init": []}
+        for s_, ph, kf in zip(rec["call_s"], rec["phases"], rec["keyframe"]):
+            kinds["keyframe" if kf else "steady" if ph == "odom"
+                  else "init"].append(1e3 * s_)
+        down = [int(voxel_downsample(
+            torch.as_tensor(p["scan"]["points"], device=sysm.device),
+            torch.ones(len(p["scan"]["points"]), device=sysm.device),
+            cfg.odom.down_size, 1 << 14)[1].sum()) for p in nat]
+        rows = np.loadtxt(tum, ndmin=2)
+        gt = np.stack([traj.state_at(t)[1] for t in rows[:, 0]])
+        ate = float(ate_rmse(rows[:, 1:4], gt))
+        sid = sysm.loop.cur_session
+        back = ses.load_session(os.path.join(save, sysm.session_names[-1]))
+        n_ply = ply_vertices(ply)
+        exp_lines = []
+        tum2, ply2 = os.path.join(d, "export.tum"), os.path.join(d, "e.ply")
+        rc_export = cli.main(["export", os.path.join(save,
+                                                     sysm.session_names[-1]),
+                              "--export-traj", tum2, "--export-map", ply2],
+                             log=exp_lines.append)
+        info = []
+        rc_info = cli.main(["info", "hesai"], log=info.append)
+        info_cfg = json.loads("\n".join(info))
+        checks = {
+            "rc_0": rc == 0, "ate_below_limit": ate < ATE_LIMIT,
+            "one_launch_per_steady_or_refill_scan":
+                rec["launches"] == rec["n_steady"] > 0,
+            "session_reloads": len(back) == len(sysm.loop.scan_poses[sid])
+            > 0,
+            "ply_header_parses": bool(n_ply),
+            "native_loader_equals_inline_path": same_packets(nat, inline),
+            "scans_all_processed": n == len(nat) == CLI_SCANS,
+            "export_rc_0_and_trajectory_rows": rc_export == 0
+            and len(np.loadtxt(tum2, ndmin=2)) == len(back)
+            and bool(ply_vertices(ply2)),
+            "info_hesai": rc_info == 0 and info_cfg["lidar_type"] == "hesai",
+        }
+        emit("cli", nvidia_smi=smi_line, argv=argv[2:],
+             config="hesai preset, SlamConfig default widths",
+             scans=n, steady_calls=rec["n_steady"],
+             phases=[(k, p) for k, p in enumerate(rec["phases"])
+                     if p != "odom"],
+             raw_points_per_scan=[min(hits), max(hits)],
+             decoded_points_per_scan=[min(len(p["scan"]["points"])
+                                          for p in nat),
+                                      max(len(p["scan"]["points"])
+                                          for p in nat)],
+             downsampled_points_per_scan=[min(down), max(down)],
+             point_max=cfg.odom.point_max, dataset_write_s=write_s,
+             scans_per_s=n / (rec["t1"] - rec["t0"]),
+             run_s=rec["t1"] - rec["t0"],
+             ms_per_scan={k: dict(n=len(v), mean=float(np.mean(v)),
+                                  median=float(np.median(v)))
+                          for k, v in kinds.items() if v},
+             loader_wait_ms_per_scan=1e3 * float(np.mean(rec["waits"])),
+             loader_wait_ms_max=1e3 * float(np.max(rec["waits"])),
+             loader_alone_ms_per_scan=1e3 * native_s / len(nat),
+             host_decode_ms_per_scan=1e3 * inline_s / len(inline),
+             keyframes=sum(len(k) for k in sysm.loop.keyframes),
+             gba_windows=len(sysm.gba.window_log),
+             corrections=sysm.corrections, final_session=sid,
+             ate_m=ate, ate_limit_m=ATE_LIMIT, kernel_launches=rec["launches"],
+             ply_vertices=n_ply, session_scans=len(back), log=lines,
+             export_log=exp_lines, checks=checks)
+    if not all(checks.values()):
+        fail(f"cli checks failed: {checks}")
+    packets = [(p["scan"]["points"], p["scan"]["offsets"], p["imu_ts"],
+                p["imu_gyr"], p["imu_acc"], p["scan"]["t_beg"],
+                p["scan"]["t_end"]) for p in nat]
+    return rec["launches"], packets, cfg
+
+
+def _continue(sysm, packets):
+    """process_scan over the packets; (positions, rotations) after each,
+    and the number of steady calls."""
+    import numpy as np
+    ps, Rs, n_steady = [], [], 0
+    for pkt in packets:
+        n_steady += int(sysm.odom.init_done)
+        sysm.process_scan(*pkt)
+        ps.append(sysm.odom.x.p.cpu().numpy())
+        Rs.append(sysm.odom.x.R.cpu().numpy())
+    return np.stack(ps), np.stack(Rs), n_steady
+
+
+def _gba_state(sysm):
+    return (len(sysm.gba.window_log), len(sysm.gba.edges1),
+            len(sysm.gba.submaps), sysm.corrections, len(sysm.scan_poses))
+
+
+def checkpoint_phase(packets, cfg):
+    """Phase checkpoint: SlamSystem on phase cli's packets at its config
+    (loop closure and GBA on, deterministic algorithms), saved at the
+    first scan after a keyframe that dispatched a GBA window, continued
+    CKPT_TAIL scans; a fresh system on the card loads the file and
+    continues the same scans bitwise equal, and one on the CPU within
+    POSE_TOL. Fails the run on any check. Returns the moments launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.ops import moments as mo
+    from voxelslam_tpu_torch.pipeline.system import SlamSystem
+    torch.use_deterministic_algorithms(True)
+    sys1 = SlamSystem(cfg, enable_loop=True, enable_gba=True, device="cuda")
+    mo.counter.reset()
+    n_steady, k, dispatched = 0, 0, False
+    while k + CKPT_TAIL < len(packets):
+        windows = len(sys1.gba.window_log)
+        n_steady += int(sys1.odom.init_done)
+        sys1.process_scan(*packets[k])
+        k += 1
+        if dispatched:
+            break
+        dispatched = len(sys1.gba.window_log) > windows
+    if not dispatched:
+        fail("checkpoint: no GBA window dispatched before the tail")
+    in_flight = dict(
+        save_after_scan=k, gba_window_in_flight=sys1.gba._inflight_step
+        is not None, gba_condense_in_flight=sys1.gba._inflight_cond
+        is not None, keyframe_scans_accumulated=len(sys1.loop._bl_local),
+        odom_pending_emission=sys1.odom._pending is not None,
+        odom_scan_queue=len(sys1.odom._scan_queue),
+        odom_win_count=sys1.odom.win_count)
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=OUT) as d:
+        path = os.path.join(d, "live.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys1.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        tail = packets[k:k + CKPT_TAIL]
+        *ref, n1 = _continue(sys1, tail)
+        launches = mo.counter.launches
+        sys2 = SlamSystem(cfg, enable_loop=True, enable_gba=True,
+                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys2.load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mo.counter.reset()
+        *got, n2 = _continue(sys2, tail)
+        launches2 = mo.counter.launches
+        cpu = SlamSystem(cfg, enable_loop=True, enable_gba=True, device="cpu")
+        t0 = time.perf_counter()
+        cpu.load_checkpoint(path)
+        cpu_load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        *on_cpu, _ = _continue(cpu, tail)
+        cpu_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(False)
+    cpu_dev = [float(np.abs(a - b).max()) for a, b in zip(on_cpu, ref)]
+    checks = {
+        "window_in_flight_at_save": in_flight["gba_window_in_flight"],
+        "restored_bitwise_equal": bool(np.array_equal(ref[0], got[0])
+                                       and np.array_equal(ref[1], got[1])),
+        "same_windows_edges_submaps_corrections":
+            _gba_state(sys1) == _gba_state(sys2),
+        "cpu_restore_within_pose_tol": max(cpu_dev) <= POSE_TOL,
+        "one_launch_per_steady_scan": launches == n_steady + n1 > 0
+        and launches2 == n2 == n1,
+    }
+    emit("checkpoint", config="phase cli's packets and config, "
+         "deterministic algorithms", in_flight=in_flight, tail=CKPT_TAIL,
+         save_s=save_s, load_s=load_s, file_bytes=nbytes,
+         cpu_load_s=cpu_load_s, cpu_tail_s=cpu_s,
+         cpu_max_dev=dict(p=cpu_dev[0], R=cpu_dev[1]), pose_tol=POSE_TOL,
+         windows_edges_submaps_corrections_poses=_gba_state(sys1),
+         kernel_launches=launches + launches2,
+         steady_calls=n_steady + n1 + n2, checks=checks)
+    if not all(checks.values()):
+        fail(f"checkpoint checks failed: {checks}")
+    return launches + launches2
+
+
 def main():
     import numpy as np
     import torch
@@ -1004,17 +1360,19 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build: nvcc and g++ side by side
+    # 2. build: nvcc and two g++ side by side
     from concurrent.futures import ThreadPoolExecutor
     from voxelslam_tpu_torch import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(mo.build), pool.submit(native.build)]
-        lib, store = [f.result() for f in builds]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(mo.build), pool.submit(native.build, "btcdb"),
+                  pool.submit(native.build, "ingest")]
+        lib, store, ingest = [f.result() for f in builds]
     mo._library()
-    native.library()
+    native.library("btcdb")
+    native.library("ingest")
     emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
-         descriptor_store=store.name)
+         descriptor_store=store.name, ingest_loader=ingest.name)
 
     # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
@@ -1066,12 +1424,15 @@ def main():
     errs.append(err)
     del flush, slots, upds
 
-    # the main path's runs, each counted from 0: the slice, mgsize = 2
-    # and the full system (GBA launches no moments kernel)
+    # the main path's runs, each counted from 0: the slice, mgsize = 2,
+    # the full system (GBA launches no moments kernel), the command line
+    # and the checkpoint's runs
     launches = {"slice": r["launches"],
                 "system": system_phase(smi_line),
                 "slice_mg2": slice_mg2_phase(cfg, traj, packets)}
     gba_phase(smi_line)
+    launches["cli"], cli_packets, cli_cfg = cli_phase(smi_line)
+    launches["checkpoint"] = checkpoint_phase(cli_packets, cli_cfg)
 
     # kernels line
     print(json.dumps({"kernels": [{

@@ -403,10 +403,9 @@ def test_failed_store_build_raises(monkeypatch, tmp_path):
     """The loop pipeline's descriptor DB never falls back to the dict path:
     a store that does not compile raises with the compiler's message."""
     from voxelslam_tpu_torch import native
-    bad = tmp_path / "btcdb.cpp"
-    bad.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "_SRC", bad)
+    (tmp_path / "btcdb.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_CSRC", tmp_path)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tbtc.DescriptorDB(tbtc.BtcConfig())

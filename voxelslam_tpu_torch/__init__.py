@@ -2,8 +2,10 @@
 
 The odometry + local-BA pipeline (`pipeline.SlamPipeline`) runs on an
 NVIDIA GPU with plain PyTorch ops, plus one hand-written CUDA kernel for
-the voxel-moment accumulation (`ops.moments`, sources in `csrc/`). The
-JAX package is the reference: every module here keeps its counterpart's
+the voxel-moment accumulation (`ops.moments`, sources in `csrc/`);
+`pipeline.SlamSystem` adds loop closure and the global BA, and
+`python -m voxelslam_tpu_torch` is the command line (`cli.py`). The JAX
+package is the reference: every module here keeps its counterpart's
 function names, and the `tests/test_torch_*.py` files hold each one
 against it. This package imports nothing of JAX or of `voxelslam_tpu`.
 """

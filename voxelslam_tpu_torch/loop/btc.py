@@ -483,6 +483,25 @@ class DescriptorDB:
             from .. import native
             self._nat = native.BtcDb(cfg.side_quant, 3 * cfg.code_bits)
 
+    # -- pickling (checkpoints): the native store is a ctypes handle; it is
+    # rebuilt from the stored frames on restore (a failed build raises) --
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["_nat"] = self._nat is not None
+        return d
+
+    def __setstate__(self, d):
+        had_native = d.pop("_nat")
+        self.__dict__.update(d)
+        self._nat = None
+        if had_native:
+            from .. import native
+            self._nat = native.BtcDb(self.cfg.side_quant,
+                                     3 * self.cfg.code_bits)
+            for fid, fr in self.frames.items():
+                self._nat.add(fid, fr["sides"], fr["binary"],
+                              fr["tri_valid"])
+
     def _qkey(self, sides):
         return np.round(sides / self.cfg.side_quant).astype(np.int64)
 

@@ -23,8 +23,9 @@ there as searchable sessions.
 A divergence reset of the odometry opens a new loop session; earlier
 sessions stay searchable, so the new one can relocalize into them.
 
-Not ported yet: checkpoints (ROADMAP.md Queue A item 6) and GBA windows
-sharded over several cards (item 7).
+`save_checkpoint`/`load_checkpoint` snapshot the live state mid-run
+(`utils/checkpoint.py`). Not ported yet: GBA windows sharded over several
+cards (ROADMAP.md Queue A item 7).
 """
 
 from __future__ import annotations
@@ -142,12 +143,17 @@ class SlamSystem:
         return self.odom.scan_poses
 
     def save_checkpoint(self, path: str):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md Queue A item 6)")
+        """Mid-run snapshot of all live state (odometry + loop + GBA, work
+        in flight included); the reference has no equivalent, its sessions
+        persist only at finish. Restore with `load_checkpoint` on a freshly
+        constructed system with the same config and flags."""
+        from ..utils import checkpoint as ckpt
+        ckpt.save_system(self, path)
 
     def load_checkpoint(self, path: str):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md Queue A item 6)")
+        """Restore a `save_checkpoint` file onto this system's device."""
+        from ..utils import checkpoint as ckpt
+        ckpt.load_system(self, path)
 
     def save(self, name: str | None = None):
         """Write the live session and the multi-session loop edges under
