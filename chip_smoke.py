@@ -48,7 +48,7 @@ Phases, each printing one JSON line:
   8. gba_window - HbaRunner at SlamSystem's widths (8,192-point
                 keyframes, GBAConfig defaults), streamed, flushed, then
                 the total BA, over 30 keyframes of tests/test_gba.py's
-                scene (as a user runs it) and twice over 30 of
+                scene (as a user runs it) and twice over 20 of
                 bench_gba.py's synthetic corridor (under deterministic
                 algorithms): ms per window, rounds, host reads, peak
                 memory of each; kernel launches, host syncs and device
@@ -56,6 +56,14 @@ Phases, each printing one JSON line:
                 every window lowers its residual and the relative-pose
                 error falls below half its input (see `gba_phase` for why
                 not on the corridor); the corridor runs bitwise equal;
+     then the scene's windows batched (HbaRunner(mesh=global_win_mesh(1),
+     fleet_batch=1, 2, 4)): ms per window, rounds and host reads per
+     batch, peak memory, launches and device busy share of one profiled
+     batch; under deterministic algorithms, edges and submaps within
+     tests/test_dist_gba.py's tolerances of the single-window run's; the
+     corridor at fleet_batch 2 twice bitwise equal, and once through a
+     1-rank NCCL process group (the gather on the card) bitwise equal to
+     those;
   9. cli      - `python -m voxelslam_tpu_torch run DIR --preset hesai --gba
                 --save-dir S --export-map m.ply --export-traj t.tum`, called
                 in-process as cli.main, over a recorded Hesai dataset
@@ -68,11 +76,13 @@ Phases, each printing one JSON line:
                 waited on the loader, host decode ms a scan; then `export`
                 of the saved session and `info hesai`;
   10. checkpoint - SlamSystem on phase cli's packets, saved with a GBA
-                window in flight, continued 20 scans; restored on the card
+                window in flight, continued 10 scans; restored on the card
                 it continues bitwise equal, restored on the CPU within
                 5e-3; save and load seconds, the file's bytes;
-  11. kernels - one line listing every kernel with its numbers;
-  12. the last line: {"ok": true, "device": {...}}.
+  11. timing  - the wall seconds of the phases (device, build, kernel and
+                slice together as `to_system`);
+  12. kernels - one line listing every kernel with its numbers;
+  13. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
@@ -101,11 +111,13 @@ SYS_ERR_LIMIT = 2.5             # m at a correction (tests/test_elevator.py)
 SYS_TAIL = 10                   # scans the second system run goes past the
                                 # first correction
 GBA_KF, GBA_P = 30, 8192        # phase gba_window: keyframes, points each
+CORRIDOR_KF = 20                # phase gba_window: the corridor's keyframes
+FLEET_BATCHES = (1, 2, 4)       # phase gba_window: windows a batched call
 # phase cli: 150 scans at 10 Hz of a 32-beam spinning LiDAR (the
 # PandarXT-32's channels); 240 azimuths give 7,680 rays a scan, which the
 # hesai preset's 0.1 m downsample keeps nearly whole, under point_max 8192
 CLI_SCANS, CLI_AZ, CLI_EL = 150, 240, 32
-CKPT_TAIL = 20                  # scans each system continues past the save
+CKPT_TAIL = 10                  # scans each system continues past the save
 POSE_TOL = 5e-3                 # m and rotation entries, CPU against the card
                                 # (tests/test_torch_system.py)
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -493,15 +505,19 @@ def scene_keyframes(n, P, seed=3, perturb=0.02):
     return kfs, truth
 
 
-def run_gba(kfs):
+def run_gba(kfs, mesh=None, fleet_batch=None, total=True):
     """Stream the keyframes through an HbaRunner at SlamSystem's widths
-    (its defaults), flush, then the total BA; synchronised clocks."""
+    (its defaults; with a mesh, windows batched `fleet_batch` at a time),
+    flush, then (with `total`) the total BA; synchronised clocks.
+    `n_steps` counts the window steps (batches with a mesh) of the
+    stream, `n_windows` its windows."""
     import torch
     from voxelslam_tpu_torch.config import SlamConfig
     from voxelslam_tpu_torch.gba import HbaRunner
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runner = HbaRunner(SlamConfig(), device="cuda")
+    runner = HbaRunner(SlamConfig(), mesh=mesh, fleet_batch=fleet_batch,
+                       device="cuda")
     outs, call_ms = [], []
     t0 = time.perf_counter()
     for kf in kfs + [None]:
@@ -512,32 +528,50 @@ def run_gba(kfs):
             outs.append(out)
             call_ms.append(1e3 * (time.perf_counter() - t1))
     stream_s = time.perf_counter() - t0
-    n_windows, stream_syncs = len(runner.window_log), runner.host_syncs
+    n_steps, stream_syncs = len(runner.window_log), runner.host_syncs
+    n_windows = len(runner.submaps)
     t0 = time.perf_counter()
-    total = runner.total_ba()
+    total = runner.total_ba() if total else None
     torch.cuda.synchronize()
     return dict(runner=runner, outs=outs, call_ms=call_ms, stream_s=stream_s,
-                n_windows=n_windows, stream_syncs=stream_syncs, total=total,
+                n_steps=n_steps, n_windows=n_windows,
+                stream_syncs=stream_syncs, total=total,
                 total_s=time.perf_counter() - t0,
                 peak_bytes=torch.cuda.max_memory_allocated())
 
 
-def profile_window(runner, kfs):
-    """One more window BA over `kfs` (`_run_window`, read at once), twice:
-    under the CUDA sync debug mode, which warns at every call that makes
-    the host wait for the card (the explicit reads included), and under
-    torch.profiler: kernels launched, device busy time, wall time. Each
-    run reports its rounds (`sync_rounds`, `rounds`)."""
+def window_step(runner, windows):
+    """A callable that runs one window step and reads it at once: without
+    a mesh, the window BA of windows[0] (`_run_window`); with one, the
+    batch of `windows` through the batched step (`_batch_step`) and one
+    read of its outputs."""
+    import numpy as np
+    if runner.mesh is None:
+        return lambda: runner._run_window(windows[0], len(windows[0]))
+    inp = (np.stack([[k.cloud for k in w] for w in windows]),
+           np.stack([[k.mask for k in w] for w in windows]),
+           np.stack([[k.R0 for k in w] for w in windows]),
+           np.stack([[k.p0 for k in w] for w in windows]),
+           np.ones((len(windows), len(windows[0])), np.float32))
+    return lambda: runner._fetch(*runner._batch_step(
+        *(runner._t(a) for a in inp), 1024))
+
+
+def profile_window(runner, step):
+    """One more window step (`window_step`), twice: under the CUDA sync
+    debug mode, which warns at every call that makes the host wait for the
+    card (the explicit reads included), and under torch.profiler: kernels
+    launched, device busy time, wall time. Each run reports its rounds
+    (`sync_rounds`, `rounds`) and windows (`windows`)."""
     import warnings
     import torch
     from torch.profiler import profile, ProfilerActivity
-    W = len(kfs)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            runner._run_window(kfs, W)
+            step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sync_rounds = runner.window_log[-1]["rounds"]
@@ -548,10 +582,11 @@ def profile_window(runner, kfs):
             at = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
             sources[at] = sources.get(at, 0) + 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity alone: with the host's ops recorded too, a
+    # profiled batch's trace took over half a minute to process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner._run_window(kfs, W)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, busy_us = 0, 0.0
@@ -562,7 +597,8 @@ def profile_window(runner, kfs):
             busy_us += dev if dev is not None else getattr(
                 e, "self_cuda_time_total", 0)
     rounds = runner.window_log[-1]["rounds"]
-    return dict(rounds=rounds, sync_rounds=sync_rounds,
+    return dict(windows=runner.window_log[-1].get("Nw", 1), rounds=rounds,
+                sync_rounds=sync_rounds,
                 host_syncs=sum(sources.values()),
                 sync_sources=dict(sorted(sources.items(),
                                          key=lambda kv: -kv[1])[:12]),
@@ -597,7 +633,7 @@ def gba_summary(r, kfs, truth):
     runner = r["runner"]
     g = runner.cfg.gba
     n_win = r["n_windows"]
-    log = runner.window_log[:n_win]
+    log = runner.window_log[:r["n_steps"]]
     wins = [o for o in r["outs"] if o.get("r0") is not None]
     tot = r["total"]
     e_in = consecutive_error([(a.scan_id, b.scan_id, a.R0.T @ (b.p0 - a.p0))
@@ -613,7 +649,7 @@ def gba_summary(r, kfs, truth):
         window_r0=[w["r0"] for w in wins], window_r1=[w["r1"] for w in wins],
         edges1=len(runner.edges1), edges2=len(runner.edges2),
         submaps=len(runner.submaps), total_ba=tot, total_ba_s=r["total_s"],
-        total_ba_rounds=runner.window_log[n_win]["rounds"],
+        total_ba_rounds=runner.window_log[r["n_steps"]]["rounds"],
         rel_err_in_m=e_in, rel_err_out_m=e_out,
         peak_mem_bytes=r["peak_bytes"])
     checks = dict(
@@ -627,12 +663,104 @@ def gba_summary(r, kfs, truth):
     return out, checks
 
 
+def fleet_diff(a, b):
+    """The largest differences between two runners' bottom-up edges and
+    submaps, and whether they hold tests/test_dist_gba.py:55-62's
+    tolerances (edge R 2e-4, t 2e-3, v6 rtol 0.3; submap first position
+    2e-3, occupied cells within 32), pair for pair in order."""
+    import numpy as np
+    same = ([(e.id_a, e.id_b, e.ord_a, e.ord_b) for e in a.edges1]
+            == [(e.id_a, e.id_b, e.ord_a, e.ord_b) for e in b.edges1]
+            and [m.scan_id for m in a.submaps] == [m.scan_id
+                                                   for m in b.submaps])
+    if not (same and a.edges1 and a.submaps):
+        return dict(same_records=False, within_tolerance=False)
+    dR = max(float(np.abs(e.R - f.R).max()) for e, f in zip(a.edges1,
+                                                           b.edges1))
+    dt = max(float(np.abs(e.t - f.t).max()) for e, f in zip(a.edges1,
+                                                           b.edges1))
+    v6 = max(float((np.abs(e.v6 - f.v6) / np.abs(f.v6)).max())
+             for e, f in zip(a.edges1, b.edges1))
+    dp = max(float(np.abs(m.p0 - n.p0).max()) for m, n in zip(a.submaps,
+                                                             b.submaps))
+    dm = max(abs(float(m.mask.sum()) - float(n.mask.sum()))
+             for m, n in zip(a.submaps, b.submaps))
+    return dict(same_records=True, edges=len(a.edges1),
+                submaps=len(a.submaps), max_dR=dR, max_dt_m=dt,
+                max_v6_rel=v6, max_submap_dp0_m=dp, max_submap_cells=dm,
+                submap_clouds_bitwise_equal=all(
+                    np.array_equal(m.cloud, n.cloud)
+                    and np.array_equal(m.mask, n.mask)
+                    for m, n in zip(a.submaps, b.submaps)),
+                within_tolerance=bool(dR <= 2e-4 and dt <= 2e-3
+                                      and v6 <= 0.3 and dp <= 2e-3
+                                      and dm < 32))
+
+
+def fleet_summary(r):
+    """What phase gba_window reports of one batched run_gba result."""
+    runner = r["runner"]
+    log = runner.window_log[:r["n_steps"]]
+    return dict(
+        fleet_batch=runner._fleet_batch, windows=r["n_windows"],
+        batches=len(log), windows_per_batch=[w["Nw"] for w in log],
+        ms_per_window=1e3 * r["stream_s"] / r["n_windows"],
+        call_ms=r["call_ms"], rounds_per_batch=[w["rounds"] for w in log],
+        explicit_host_reads_per_batch=r["stream_syncs"] / len(log),
+        peak_mem_bytes=r["peak_bytes"])
+
+
+def nccl_fleet(kfs, fleet_batch):
+    """The fleet through a 1-rank NCCL process group (127.0.0.1, a free
+    port), so the gather runs on the card: NCCL cannot put two ranks on
+    one card, so the one rank runs every window. Returns (the run_gba
+    result, the group's description); the group is torn down and the
+    environment restored."""
+    import socket
+    import torch.distributed as dist
+    from voxelslam_tpu_torch.parallel import multihost as mh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mh.ensure_distributed()
+        mesh = mh.global_win_mesh(min_devices=1)
+        group = dict(backend=dist.get_backend(), mesh_size=mesh.size,
+                     device=str(mesh.device), has_group=mesh.group is not None)
+        r = run_gba(kfs, mesh, fleet_batch, total=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return r, group
+
+
 def gba_phase(smi_line):
     """Phase gba_window: tests/test_gba.py's keyframes through the global
     BA as a user runs it (times, one profiled window, accuracy), then
     bench_gba.py's corridor keyframes twice under deterministic algorithms
-    (times, one profiled window, bitwise equality); fails the run on any
-    check.
+    (times, one profiled window, bitwise equality); then the scene's
+    windows batched at fleet_batch 1, 2 and 4 on the one-card mesh as a
+    user runs them (times, one profiled batch each), and again under
+    deterministic algorithms, where their edges and submaps are held to
+    the single-window run's; the corridor at fleet_batch 2 twice under
+    deterministic algorithms (bitwise) and once more through a 1-rank
+    NCCL group (bitwise equal to those); fails the run on any check.
+
+    The batched runs are held to the single-window run under
+    deterministic algorithms only: as a user runs it, the map's scatter
+    adds on the card sum in no fixed order, and a near-zero Hessian entry
+    (v6 = 1/|H_ij|) then parts between any two runs, batched or not, by
+    more than tests/test_dist_gba.py's rtol of 0.3 (reported, unchecked,
+    as `against_single_window_as_a_user_runs_it`).
 
     The corridor has no structure along its axis (x), so a keyframe's x is
     fixed by nothing there: the window BA of the JAX package on these very
@@ -641,15 +769,62 @@ def gba_phase(smi_line):
     reported, and the accuracy checks of tests/test_gba.py:85 are held on
     that test's own scene."""
     import torch
+    from voxelslam_tpu_torch.parallel.multihost import global_win_mesh
+    steps, t_step = {}, [time.perf_counter()]
+
+    def lap(name):                  # wall seconds of the phase's steps
+        now = time.perf_counter()
+        steps[name] = steps.get(name, 0.0) + now - t_step[0]
+        t_step[0] = now
     scene, s_truth = scene_keyframes(GBA_KF, GBA_P)
-    corridor, c_truth = corridor_keyframes(GBA_KF, GBA_P)
+    corridor, c_truth = corridor_keyframes(CORRIDOR_KF, GBA_P)
+    lap("keyframes")
     sc = run_gba(scene)
-    W = sc["runner"].cfg.gba.win_size
-    s_prof = profile_window(sc["runner"], scene[:W])
+    lap("scene")
+    g = sc["runner"].cfg.gba
+    W = g.win_size
+    s_prof = profile_window(sc["runner"], window_step(sc["runner"],
+                                                      [scene[:W]]))
+    lap("profiles")
     torch.use_deterministic_algorithms(True)
     det = [run_gba(corridor), run_gba(corridor)]
-    c_prof = profile_window(det[0]["runner"], corridor[:W])
+    lap("corridor")
+    c_prof = profile_window(det[0]["runner"], window_step(det[0]["runner"],
+                                                          [corridor[:W]]))
     torch.use_deterministic_algorithms(False)
+    lap("profiles")
+    # the scene's windows batched on the one-card mesh, as a user runs
+    # them, then under deterministic algorithms against the single window
+    mesh = global_win_mesh(min_devices=1)
+    wins = [scene[i:i + W] for i in range(0, len(scene) - W + 1, g.stride)]
+    fleet = {}
+    for fb in FLEET_BATCHES:
+        fr = run_gba(scene, mesh, fb, total=False)
+        lap("fleet")
+        fleet[str(fb)] = dict(
+            fleet_summary(fr), batch_profile=profile_window(
+                fr["runner"], window_step(fr["runner"], wins[:fb])),
+            against_single_window_as_a_user_runs_it=fleet_diff(
+                fr["runner"], sc["runner"]))
+        del fr
+        lap("profiles")
+    torch.use_deterministic_algorithms(True)
+    s_det = run_gba(scene)
+    for fb in FLEET_BATCHES:
+        fr = run_gba(scene, mesh, fb, total=False)
+        fleet[str(fb)]["deterministic"] = dict(
+            ms_per_window=1e3 * fr["stream_s"] / fr["n_windows"],
+            rounds_per_batch=[w["rounds"] for w in
+                              fr["runner"].window_log[:fr["n_steps"]]],
+            against_single_window=fleet_diff(fr["runner"], s_det["runner"]))
+        del fr
+    lap("fleet_deterministic")
+    cdet = [run_gba(corridor, mesh, 2, total=False),
+            run_gba(corridor, mesh, 2, total=False)]
+    lap("corridor_fleet")
+    nccl, group = nccl_fleet(corridor, 2)
+    torch.use_deterministic_algorithms(False)
+    lap("nccl")
     s_out, s_checks = gba_summary(sc, scene, s_truth)
     c_out, c_checks = gba_summary(det[0], corridor, c_truth)
     checks = {
@@ -662,7 +837,19 @@ def gba_phase(smi_line):
         "corridor_finite": c_checks["finite"],
         "corridor_two_runs_bitwise_equal":
             gba_snapshot(det[0]["runner"]) == gba_snapshot(det[1]["runner"]),
+        "corridor_fleet_batch_2_two_runs_bitwise_equal":
+            gba_snapshot(cdet[0]["runner"])
+            == gba_snapshot(cdet[1]["runner"]),
+        "nccl_one_rank_group": group["backend"] == "nccl"
+        and group["has_group"] and group["mesh_size"] == 1,
+        "nccl_fleet_bitwise_equal_to_fleet_batch_2":
+            gba_snapshot(nccl["runner"]) == gba_snapshot(cdet[0]["runner"]),
     }
+    for fb, f in fleet.items():
+        checks[f"scene_fleet_batch_{fb}_windows"] = (
+            f["windows"] == s_out["windows"])
+        checks[f"scene_fleet_batch_{fb}_matches_single_window"] = (
+            f["deterministic"]["against_single_window"]["within_tolerance"])
     emit("gba_window", nvidia_smi=smi_line,
          config="SlamSystem's HbaRunner widths: kf_point_max 8192, capacity "
                 "8192, unique_max 4096, factor_max 1024 (total BA 2048), "
@@ -673,10 +860,17 @@ def gba_phase(smi_line):
                        deterministic_algorithms=True,
                        run2_ms_per_window=1e3 * det[1]["stream_s"]
                        / det[1]["n_windows"], window_profile=c_prof,
+                       fleet_batch_2_ms_per_window=[
+                           1e3 * r["stream_s"] / r["n_windows"]
+                           for r in cdet + [nccl]],
                        unchecked={k: c_checks[k] for k in (
                            "r1_below_r0_every_window",
                            "rel_pose_error_below_half_input")}),
-         checks=checks)
+         fleet=dict(fleet, mesh="global_win_mesh(min_devices=1): one card, "
+                    "no process group", windows_from="the scene's stream",
+                    single_window_deterministic_ms_per_window=1e3
+                    * s_det["stream_s"] / s_det["n_windows"]),
+         nccl=group, step_seconds=steps, checks=checks)
     if not all(checks.values()):
         fail(f"gba_window checks failed: {checks}")
 
@@ -740,18 +934,6 @@ def _snapshot(sysm, xs, corr_ks):
         edges=[(e.id_a, e.id_b, e.ord_a, e.ord_b, e.R.tobytes(),
                 e.t.tobytes()) for e in sysm.loop.lp_edges],
         gba=gba_snapshot(sysm.gba), corr_ks=list(corr_ks))
-
-
-def linked_to_0(edges):
-    """Sessions joined to session 0 by cross-session loop edges."""
-    linked, grew = {0}, True
-    while grew:
-        grew = False
-        for e in edges:
-            if e.id_a != e.id_b and (e.id_a in linked) != (e.id_b in linked):
-                linked |= {e.id_a, e.id_b}
-                grew = True
-    return sorted(linked)
 
 
 def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
@@ -845,7 +1027,7 @@ def finish_system(sysm, traj):
     import numpy as np
     import torch
     lp = sysm.loop
-    linked = linked_to_0(lp.lp_edges)
+    linked = _elevator().linked_to_0(lp.lp_edges)
     sps = [sp for s in linked for sp in lp.scan_poses[s]]
     truth = np.stack([traj.state_at(sp.t)[1] for sp in sps])
     before = np.linalg.norm(np.stack([sp.p for sp in sps]) - truth, axis=1)
@@ -1339,6 +1521,7 @@ def checkpoint_phase(packets, cfg):
 def main():
     import numpy as np
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     try:
@@ -1427,12 +1610,24 @@ def main():
     # the main path's runs, each counted from 0: the slice, mgsize = 2,
     # the full system (GBA launches no moments kernel), the command line
     # and the checkpoint's runs
-    launches = {"slice": r["launches"],
-                "system": system_phase(smi_line),
-                "slice_mg2": slice_mg2_phase(cfg, traj, packets)}
+    seconds = {"to_system": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    launches = {"slice": r["launches"], "system": system_phase(smi_line)}
+    seconds["system_and_sessions"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["slice_mg2"] = slice_mg2_phase(cfg, traj, packets)
+    seconds["slice_mg2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     gba_phase(smi_line)
+    seconds["gba_window"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches["cli"], cli_packets, cli_cfg = cli_phase(smi_line)
+    seconds["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches["checkpoint"] = checkpoint_phase(cli_packets, cli_cfg)
+    seconds["checkpoint"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_start
+    emit("timing", seconds=seconds)
 
     # kernels line
     print(json.dumps({"kernels": [{

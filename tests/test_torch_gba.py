@@ -146,6 +146,18 @@ def jax_host_loop(rnd, cfg, inputs):
                 r0=float(r0_first), r1=float(r1), phases=phases, rels=rels)
 
 
+def jax_stream(jr, kfs):
+    """The JAX runner `jr`'s stream over `kfs`: every keyframe added, then
+    flushed. Returns the dicts add_keyframe returned, flush's, and the
+    runner's state after the flush (records of its submaps, edges and
+    pending keyframes). tests/test_torch_fleet.py holds the fleet to it."""
+    dicts = [jr.add_keyframe(k) for k in kfs]
+    flush = jr.flush()
+    return dicts, flush, dict(
+        submaps=records(jr.submaps), edges1=records(jr.edges1),
+        edges2=records(jr.edges2), _pending=records(jr._pending))
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     cfg = JSlamConfig(gba=JGBA(**GBA))
@@ -171,11 +183,7 @@ def jax_side():
     out["window"] = jr._run_window(kfs[:W], W)
 
     # the stream, flushed; then total BA and top-down on its state
-    out["dicts"] = [jr.add_keyframe(k) for k in kfs]
-    out["flush"] = jr.flush()
-    out["after_flush"] = dict(
-        submaps=records(jr.submaps), edges1=records(jr.edges1),
-        edges2=records(jr.edges2), _pending=records(jr._pending))
+    out["dicts"], out["flush"], out["after_flush"] = jax_stream(jr, kfs)
     out["total"] = jr.total_ba()
     out["edges2"] = records(jr.edges2)
     out["after_total"] = dict(out["after_flush"], edges2=out["edges2"])
@@ -444,8 +452,3 @@ def test_top_down_from_jax_state(jax_side):
     for kf in lp.keyframes[0]:
         np.testing.assert_array_equal(kf.p0, lp.scan_poses[0][kf.scan_id].p)
 
-
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(fleet_batch=4)])
-def test_sharded_windows_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        HbaRunner(port_cfg(), device="cpu", **kw)

@@ -221,8 +221,10 @@ def test_system_gba_runs_on_the_system_device():
 
 def test_system_unported_methods_raise(tmp_path):
     """Checkpoints are ported (tests/test_torch_checkpoint.py holds them to
-    bitwise resumes): a fresh system's snapshot loads into another. GBA
-    windows over several cards are not, and still raise."""
+    bitwise resumes): a fresh system's snapshot loads into another. So are
+    GBA windows batched over a mesh (tests/test_torch_fleet.py): the runner
+    builds, and a checkpoint leaves its mesh and batch width to the
+    loading system's constructor."""
     sysm = SlamSystem(tconfig.small_test_config(), device="cpu")
     path = str(tmp_path / "c")
     sysm.save_checkpoint(path)
@@ -230,5 +232,12 @@ def test_system_unported_methods_raise(tmp_path):
     re.load_checkpoint(path)
     assert re.session_names == sysm.session_names and not re.scan_poses
     from voxelslam_tpu_torch.gba.hba import HbaRunner
-    with pytest.raises(NotImplementedError, match="item 7"):
-        HbaRunner(tconfig.small_test_config(), mesh=object(), device="cpu")
+    from voxelslam_tpu_torch.parallel.multihost import global_win_mesh
+    from voxelslam_tpu_torch.utils import checkpoint as ckpt
+    runner = HbaRunner(tconfig.small_test_config(),
+                       mesh=global_win_mesh(min_devices=1), fleet_batch=2,
+                       device="cpu")
+    assert runner.mesh.size == 1 and runner._fleet_batch == 2
+    state = ckpt._state_dict(runner)
+    assert "mesh" not in state and "_fleet_batch" not in state
+    assert "_win_queue" in state and "_fleet_inflight" in state

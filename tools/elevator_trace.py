@@ -14,7 +14,10 @@ A trace is a JSON object:
   searches - per BTC search of one keyframe against one session: the
              voted candidates (frame, votes), each RANSAC verification's
              plane overlap, each ICP candidate's ok and min eigenvalue,
-             and the accepted match.
+             and the accepted match;
+  finish   - with GBA on, the position error of the scans of every session
+             linked to session 0, per session, before and after
+             `finish()` (`finish_errors`).
 `compare(a, b)` says where two traces part.
 """
 import json
@@ -217,6 +220,49 @@ class Tracer:
                    for e in sysm.loop.lp_edges])
 
 
+def linked_to_0(edges):
+    """Sessions joined to session 0 by cross-session loop edges."""
+    linked, grew = {0}, True
+    while grew:
+        grew = False
+        for e in edges:
+            if e.id_a != e.id_b and (e.id_a in linked) != (e.id_b in linked):
+                linked |= {e.id_a, e.id_b}
+                grew = True
+    return sorted(linked)
+
+
+def finish_errors(sysm, traj):
+    """Run `sysm.finish()` and return the position error against the truth
+    of every scan of each session linked to session 0, emitted before it,
+    before and after it (the top-down solve writes the same ScanPose
+    objects back): per session, the scans, the mean and max error and the
+    worst scan's index in its session, before and after."""
+    lp = sysm.loop
+    linked = linked_to_0(lp.lp_edges)
+    sps = {s: list(lp.scan_poses[s]) for s in linked}
+    truth = {s: np.stack([traj.state_at(sp.t)[1] for sp in v])
+             for s, v in sps.items() if v}
+
+    def errs():
+        return {s: np.linalg.norm(np.stack([np.asarray(sp.p, np.float64)
+                                            for sp in sps[s]]) - truth[s],
+                                  axis=1) for s in truth}
+    before = errs()
+    sysm.finish()
+    after = errs()
+    out = {}
+    for s in truth:
+        b, a = before[s], after[s]
+        out[str(s)] = dict(scans=len(b), mean_before=float(b.mean()),
+                           max_before=float(b.max()),
+                           worst_before=int(b.argmax()),
+                           mean_after=float(a.mean()),
+                           max_after=float(a.max()),
+                           worst_after=int(a.argmax()))
+    return out
+
+
 def summary(trace):
     """Resets, failed inits, corrections and their errors of one trace."""
     sc = trace["scans"]
@@ -292,7 +338,8 @@ def compare(a, b, tol=1e-3, keys=SCAN_KEYS):
                             for x in SCAN_KEYS + ("ev0",)}
                      for i, side in enumerate("ab")}),
         max_dp_before=max(dp) if dp else None, first_scan_dp_over=first_dp,
-        searches_equal_before=n_same, first_differing_search=first_search)
+        searches_equal_before=n_same, first_differing_search=first_search,
+        finish={side: t.get("finish") for side, t in (("a", a), ("b", b))})
 
 
 def save(path, obj):

@@ -8,6 +8,9 @@ the position error at each.
     python tools/jax_elevator_check.py --trace jax.json   # also the trace
                                 # of tools/elevator_trace.py, for
                                 # tools/torch_elevator_check.py --against
+    python tools/jax_elevator_check.py --gba --trace jax_gba.json
+        # GBA on, ending with finish(): the trace also holds the error of
+        # each session linked to session 0 before and after it
     python tools/jax_elevator_check.py --stop 267 --save-at 256 s.npz
         # also saves what a reset carries into the next session (gravity,
         # gyro bias, gravity scale, session) after scan 256, for
@@ -44,10 +47,10 @@ import elevator_trace as et  # noqa: E402
 
 
 def run(trace_path, stop, resume=None, perturb=0.0, save_at=None,
-        save_path=None):
+        save_path=None, gba=False):
     cfg = et.system_config(cm)
     packets, gt = et.elevator_packets(sim, stop)
-    sysm = SlamSystem(cfg, enable_loop=True, enable_gba=False)
+    sysm = SlamSystem(cfg, enable_loop=True, enable_gba=gba)
     tr = et.Tracer(np.asarray)
     tr.install(jloop.LoopPipeline, btc.DescriptorDB,
                [(sysm.loop, "_jit_icp"), (sysm.loop, "_jit_icp_b")])
@@ -66,9 +69,12 @@ def run(trace_path, stop, resume=None, perturb=0.0, save_at=None,
                      scale_gravity=od._scale_gravity)
     res = tr.result(sysm)
     tr.uninstall()
+    if gba:
+        res["finish"] = et.finish_errors(sysm, et.elevator_trajectory(sim))
     if trace_path:
         et.save(trace_path, res)
-    print(json.dumps(dict(et.summary(res), secs=time.time() - t0,
+    print(json.dumps(dict(et.summary(res), finish=res.get("finish"),
+                          secs=time.time() - t0,
                           corrections=sysm.corrections,
                           n_kf=[len(k) for k in sysm.loop.keyframes])))
 
@@ -128,12 +134,15 @@ def main():
     ap.add_argument("--perturb", type=float, default=0.0,
                     help="added to the resumed gravity's x (m/s^2)")
     ap.add_argument("--replay", nargs="+", help="match .npz files")
+    ap.add_argument("--gba", action="store_true",
+                    help="GBA on; the run ends with finish()")
     a = ap.parse_args()
     if a.replay:
         replay(a.replay)
     else:
-        run(a.trace, a.stop, a.resume, a.perturb,
-            *((int(a.save_at[0]), a.save_at[1]) if a.save_at else ()))
+        save = (int(a.save_at[0]), a.save_at[1]) if a.save_at else (None,
+                                                                    None)
+        run(a.trace, a.stop, a.resume, a.perturb, *save, gba=a.gba)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,11 @@ package's, from tools/jax_elevator_check.py --trace).
         # resumes (no earlier keyframes), so the comparison reads phases,
         # sessions and corrections; --perturb 1e-5 shifts the carried
         # gravity, to see how far the init's outcome moves with it
+    python tools/torch_elevator_check.py --device cpu --gba \
+        --trace torch_gba.json --against jax_gba.json
+        # GBA on in both, each run ending with finish(): "against" also
+        # sets the two packages' per-session errors before and after it
+        # side by side
 """
 import argparse
 import json
@@ -49,6 +54,8 @@ def main():
     ap.add_argument("--resume", help="carried state after a reset (.npz)")
     ap.add_argument("--perturb", type=float, default=0.0,
                     help="added to the resumed gravity's x (m/s^2)")
+    ap.add_argument("--gba", action="store_true",
+                    help="GBA on; the run ends with finish()")
     a = ap.parse_args()
     torch.set_num_threads(min(8, torch.get_num_threads()))
     torch.use_deterministic_algorithms(True)
@@ -56,7 +63,7 @@ def main():
         os.makedirs(a.dump, exist_ok=True)
     packets, gt = et.elevator_packets(sim, a.stop)
     sysm = SlamSystem(et.system_config(cm), enable_loop=True,
-                      enable_gba=False, device=a.device)
+                      enable_gba=a.gba, device=a.device)
     tr = et.Tracer(lambda x: x.detach().cpu().numpy(), a.dump)
     tr.install(tloop.LoopPipeline, btc.DescriptorDB,
                [(tloop, "icp_point_to_plane")])
@@ -71,9 +78,12 @@ def main():
         tr.scan(sysm, out, gt[k])
     res = tr.result(sysm)
     tr.uninstall()
+    if a.gba:
+        res["finish"] = et.finish_errors(sysm, et.elevator_trajectory(sim))
     if a.trace:
         et.save(a.trace, res)
-    line = dict(et.summary(res), secs=time.time() - t0, device=a.device,
+    line = dict(et.summary(res), finish=res.get("finish"),
+                secs=time.time() - t0, device=a.device,
                 n_kf=[len(k) for k in sysm.loop.keyframes])
     if a.against:
         line["against"] = et.compare(

@@ -7,6 +7,13 @@ T_i . win_i)); `hess_grad_ct_t` assembles its exact Hessian and gradient
 in closed form (the reference's acc_evaluate2, re-derived for centered
 clusters — see the JAX package for the derivation). Arrays keep the
 factor axis last, the layout `map.voxel_map.harvest_t` emits.
+
+The global BA runs these functions under torch.func.vmap over a batch of
+windows (`ba.optimizers.lm_lidar`). The contractions and the scalar sum
+whose batched kernels sum in another order than a single window's, on the
+CPU (one thread or several) or on the H100 at the global BA's shapes, go
+through `core.tensors.per_window`, so each window's result keeps the bits
+it has alone; the plain `torch.einsum`s were found batch-invariant there.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from ..core.cluster import Cluster
 from ..core.eig3 import eigh3
+from ..core.tensors import per_window, window_bmm, window_einsum, window_wsum
 
 
 @dataclasses.dataclass
@@ -49,6 +57,41 @@ def _rot_mat_t(R, S):
     return sum(e[:, :, None, k, :] * R[:, None, :, k, None] for k in range(3))
 
 
+# Contractions as the one bmm torch.einsum makes of each (the same
+# operands, shapes and strides, so the same bits), through `window_bmm`:
+# one op where the einsum dispatches a dozen views.
+
+def _ein_af_abf(x, y):
+    """einsum("af,abf->bf", x, y) ("wf,wif->if", "if,ikf->kf")."""
+    return window_bmm(x.T[:, None, :], y.permute(2, 0, 1))[:, 0].T
+
+
+def _ein_f_wjf(x, y):
+    """einsum("f,wjf->wj", x, y)."""
+    W, J, F = y.shape
+    return window_bmm(x.view(1, 1, F), y.reshape(W * J, F).T[None]).reshape(
+        W, J)
+
+
+def _ein_wif_wif(x, y):
+    """einsum("wif,wif->wf", x, y)."""
+    W, _, F = x.shape
+    return window_bmm(x.permute(0, 2, 1).reshape(W * F, 1, 3),
+                      y.permute(0, 2, 1).reshape(W * F, 3, 1)).reshape(W, F)
+
+
+def _ein_wf_wikf(x, y):
+    """einsum("wf,wikf->wik", x, y)."""
+    W, I, K, F = y.shape
+    return window_bmm(x[:, None, :], y.reshape(W, I * K, F).transpose(
+        1, 2)).reshape(W, I, K)
+
+
+def _ein_wf_wf(x, y):
+    """einsum("wf,wf->w", x, y)."""
+    return window_bmm(x[:, None, :], y[:, :, None])[:, 0, 0]
+
+
 def _total_clusters_t(ft, Rs, ps, win_mask):
     """Combined world cluster per factor: (n_t (F,), mu_t (3,F),
     S_t (3,3,F))."""
@@ -60,11 +103,11 @@ def _total_clusters_t(ft, Rs, ps, win_mask):
     n_t = fix_n + torch.sum(n_w, dim=0)
     inv_n = 1.0 / torch.clamp(n_t, min=1.0)
     mu_t = (fix_n[None] * fix_mu
-            + torch.einsum("wf,wif->if", n_w, mu_w)) * inv_n[None]
+            + _ein_af_abf(n_w, mu_w)) * inv_n[None]
     d_w = mu_w - mu_t[None]
     d_f = fix_mu - mu_t
     S_t = (fix_S + fix_n[None, None] * (d_f[:, None] * d_f[None])
-           + torch.einsum("wilf,w->ilf", S_w, m)
+           + window_wsum(S_w, m)
            + torch.einsum("wf,wif,wjf->ijf", n_w, d_w, d_w))
     empty = (n_t == 0)[None]
     mu_t = torch.where(empty, 0.0, mu_t)
@@ -84,7 +127,7 @@ def cost_t(ft, Rs, ps, win_mask):
     n_t, mu_t, S_t = _total_clusters_t(ft, Rs, ps, win_mask)
     lam, _ = _eig_t(n_t, mu_t, S_t)
     wgt = ft[6] * (n_t > 0)
-    return torch.sum(wgt * lam[:, 0])
+    return per_window(torch.sum, wgt * lam[:, 0])
 
 
 def _cross_t(x, y, axis):
@@ -115,7 +158,7 @@ def hess_grad_ct_t(ft, Rs0, ps0, win_mask):
            + sum(ps0[:, i, None, None] * U[i][None] for i in range(3)))
     u0mw = mwk[:, 0]
     u0mu = torch.einsum("if,if->f", mu_t, u0)
-    bk = torch.einsum("if,ikf->kf", mu_t, U)
+    bk = _ein_af_abf(mu_t, U)
 
     cxa = _cross_t(mu_l, a, 1)
     cxb = _cross_t(mu_l[:, :, None], b, 1)
@@ -140,7 +183,7 @@ def hess_grad_ct_t(ft, Rs0, ps0, win_mask):
     ck6 = torch.cat([ck_rot, ck_tr], dim=1)
     Q = A6 - q[:, :, None] * bk[None, None] - u0mu[None, None, None] * ck6
 
-    grad = torch.einsum("f,wjf->wj", wgt, Q[:, :, 0]).reshape(-1)
+    grad = _ein_f_wjf(wgt, Q[:, :, 0]).reshape(-1)
 
     gap = lam[:, 0:1] - lam[:, 1:3]
     inv_gap = torch.where(torch.abs(gap) > 1e-9, 1.0 / gap, 0.0)
@@ -148,13 +191,13 @@ def hess_grad_ct_t(ft, Rs0, ps0, win_mask):
     Qk = Q[:, :, 1:3].reshape(W * 6, 2, F)
     A2 = (Qk * s2[None]).reshape(W * 6, 2 * F)
     B2 = Qk.reshape(W * 6, 2 * F)
-    H = 2.0 * (A2 @ B2.T)
+    H = 2.0 * per_window(lambda x, y: x @ y.T, A2, B2)
     q60 = q.reshape(W * 6, F)
-    H = H - 2.0 * ((q60 * wgt[None]) @ q60.T)
+    H = H - 2.0 * per_window(lambda x, y: x @ y.T, q60 * wgt[None], q60)
 
     alpha = (wgt / N)[None] * m[:, None]                 # (W, F)
-    aSa = torch.einsum("wif,wif->wf", a, Sa)
-    mua = torch.einsum("wif,wif->wf", mu_l, a)
+    aSa = _ein_wif_wif(a, Sa)
+    mua = _ein_wif_wif(mu_l, a)
     hs = _cross_t(a[:, :, None], S_l, 1)
     aSaH = _cross_t(hs, a[:, None], 2)
     coef_ss = 2.0 * nm * (u0mw - u0mu[None])
@@ -164,18 +207,22 @@ def hess_grad_ct_t(ft, Rs0, ps0, win_mask):
         return torch.einsum("wf,wif,wjf->wij", alpha * c, x, y)
 
     one = torch.ones_like(aSa)
-    blk_ww = (-2.0 * torch.einsum("wf,wikf->wik", alpha, aSaH)
+    blk_ww = (-2.0 * _ein_wf_wikf(alpha, aSaH)
               + red(one, Sa, a) + red(one, a, Sa)
-              - 2.0 * torch.einsum("wf,wf->w", alpha, aSa)[:, None, None] * I3
+              - 2.0 * _ein_wf_wf(alpha, aSa)[:, None, None] * I3
               + 2.0 * red(nm, cxa, cxa)
               + 0.5 * (red(coef_ss, mu_l, a) + red(coef_ss, a, mu_l))
-              - torch.einsum("wf,wf->w", alpha * coef_ss, mua)[:, None, None]
+              - _ein_wf_wf(alpha * coef_ss, mua)[:, None, None]
               * I3)
-    blk_wt = 2.0 * torch.einsum("wf,wif,jf->wij", alpha * nm, cxa, u0)
-    blk_tt = 2.0 * torch.einsum("wf,if,jf->wij", alpha * nm, u0, u0)
+    blk_wt = 2.0 * window_einsum("wf,wif,jf->wij", alpha * nm, cxa, u0)
+    blk_tt = 2.0 * window_einsum("wf,if,jf->wij", alpha * nm, u0, u0)
     blk = torch.cat([torch.cat([blk_ww, blk_wt], dim=-1),
                      torch.cat([blk_wt.transpose(-1, -2), blk_tt], dim=-1)],
                     dim=-2)                              # (W, 6, 6)
-    H = H + torch.block_diag(*blk)
+    # block_diag(*blk) by selection, which torch.func.vmap batches
+    on_diag = torch.eye(W, dtype=torch.bool, device=Rs0.device)[:, None, :,
+                                                                None]
+    H = H + torch.where(on_diag, blk[:, :, None, :], 0.0).reshape(W * 6,
+                                                                  W * 6)
     H = 0.5 * (H + H.T)
     return H, grad

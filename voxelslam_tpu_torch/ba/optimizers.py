@@ -16,7 +16,7 @@ import torch
 
 from ..core import so3
 from ..core.state import NavState, DIM
-from ..core.tensors import tmap
+from ..core.tensors import per_window, tmap
 from ..imu import preintegration as pre
 from . import lidar_factor as lf
 
@@ -30,7 +30,7 @@ def _solve_scaled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     back to the host, a sync per call on the card."""
     d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
     Hs = H / d[:, None] / d[None, :]
-    dx = torch.linalg.solve_ex(Hs, -(g / d))[0]
+    dx = per_window(lambda A, b: torch.linalg.solve_ex(A, b)[0], Hs, -(g / d))
     return dx / d
 
 
@@ -53,7 +53,16 @@ def lm_lidar(Rs, ps, factors, win_mask, max_iter: int = 3, u0: float = 0.01):
     """LiDAR-only LM over (W,) poses (Rs (W,3,3), ps (W,3)); factors a
     FactorBatch or the factor-minor tuple. Dead frames (win_mask 0) are
     pinned by an identity diagonal, so their update is exactly zero.
-    Returns (Rs, ps, H, r0, r1, conv)."""
+    Returns (Rs, ps, H, r0, r1, conv).
+
+    With a leading window axis (Rs (Nw,W,3,3), factors from a batched
+    `harvest_t`) each window runs its own LM through `torch.func.vmap`:
+    one batched op for each op of the single window's LM, except the
+    `per_window` ops (contractions, the solve, scalar sums), one a window,
+    so each window's result is bitwise the one it gets alone."""
+    if Rs.dim() == 4:
+        return torch.func.vmap(lambda R, p, f, m: lm_lidar(
+            R, p, f, m, max_iter, u0))(Rs, ps, factors, win_mask)
     W = Rs.shape[0]
     if isinstance(factors, lf.FactorBatch):
         factors = lf.transpose_factors(factors)
@@ -76,7 +85,7 @@ def lm_lidar(Rs, ps, factors, win_mask, max_iter: int = 3, u0: float = 0.01):
         dxw = dx.reshape(W, 6)
         Rs_n = Rs @ so3.exp(dxw[:, 0:3])
         ps_n = ps + dxw[:, 3:6]
-        q1 = 0.5 * torch.dot(dx, u * (Dg * dx) - gf)
+        q1 = 0.5 * per_window(torch.dot, dx, u * (Dg * dx) - gf)
         r2 = lf.cost_t(factors, Rs_n, ps_n, win_mask)
         q = r1 - r2
         accept = q > 0

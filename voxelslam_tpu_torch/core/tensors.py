@@ -3,7 +3,8 @@
 `tmap` is `jax.tree.map` over the port's dataclasses of tensors (and
 tuples/lists of them); `mv` is the batched matrix-vector product that
 `A @ v` means under `jax.vmap`; `cumsum0` is a float prefix sum that stays
-deterministic on the GPU (torch's CUDA float cumsum is not).
+deterministic on the GPU (torch's CUDA float cumsum is not); `per_window`
+keeps an op's sums in their unbatched order under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -112,3 +113,51 @@ def drop_add(buf: torch.Tensor, idx: torch.Tensor,
     out = torch.cat([buf, buf.new_zeros((1,) + tuple(buf.shape[1:]))])
     out.index_add_(0, idx, val.to(buf.dtype))
     return out[:C]
+
+
+class _PerWindow(torch.autograd.Function):
+    """`fn(*xs)`, which torch.func.vmap runs once per batch entry."""
+
+    @staticmethod
+    def forward(fn, *xs):
+        return fn(*xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *xs):
+        rows = [[x] * info.batch_size if d is None else x.unbind(d)
+                for x, d in zip(xs, in_dims[1:])]
+        return torch.stack([fn(*r) for r in zip(*rows)]), 0
+
+
+def per_window(fn, *xs):
+    """`fn(*xs)` for tensors `xs`; under `torch.func.vmap` fn runs once per
+    batch entry, at the unbatched shapes, so each entry's result is
+    bitwise the one it gets alone. For the ops whose summation order the
+    batch would change: library contractions (einsum, matmul), reductions
+    to a few outputs and linear solves, whose CPU and CUDA kernels pick
+    their blocking and split from the whole operand's shape. One launch
+    per entry: keep it to those ops."""
+    return _PerWindow.apply(fn, *xs)
+
+
+def window_einsum(eq: str, *xs):
+    """torch.einsum(eq, *xs) as one `per_window` op."""
+    return per_window(lambda *ys: torch.einsum(eq, *ys), *xs)
+
+
+def window_bmm(a, b):
+    """torch.bmm(a, b) as one `per_window` op."""
+    return per_window(torch.bmm, a, b)
+
+
+def window_wsum(x, m):
+    """torch.einsum("w...,w->...", x, m), the sum over the leading axis
+    weighted by m (W,), as the one bmm the einsum makes of it: one
+    `per_window` op."""
+    W = x.shape[0]
+    return window_bmm(x.reshape(W, -1).T[None], m.reshape(1, W, 1)).reshape(
+        x.shape[1:])

@@ -26,8 +26,19 @@ a 3-iteration `lm_lidar`.
 The dispatch-ahead order of the JAX package is kept: a window's edges
 appear when the next window is added, its submap one window later, and
 `add_keyframe`/`drain` return the same dicts. Its outputs are read with
-one synchronous copy at harvest. Windows sharded over several cards (the
-JAX package's `mesh`/`fleet_batch`) are not ported.
+one synchronous copy at harvest.
+
+With a mesh (`parallel.multihost.WinMesh`; `global_win_mesh(min_devices=1)`
+for one card) windows queue and run `fleet_batch` at a time through
+`parallel.dist_gba.make_window_fleet`: one batched round serves every
+window of the batch (a leading window axis on the map, the factors and the
+LM), rounds run until every window has stopped, a stopped window's carry
+is frozen as the JAX package's vmapped `while_loop` freezes it, and the
+host reads every window's phase and round count in one copy a round. A
+batch is harvested when the next one is dispatched, so edges and submaps
+appear at the same `add_keyframe` calls as in the JAX runner. A mesh of
+several ranks splits each batch over them. `total_ba` and the path
+without a mesh run one window at a time.
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ import torch
 from ..config import SlamConfig, MapConfig
 from ..map import voxel_map as vm
 from ..ba import optimizers as opt
-from ..parallel.dist_gba import all_pairs_edges, condense_window
+from ..parallel.dist_gba import (all_pairs_edges, condense_window,
+                                 make_window_fleet)
 from ..pipeline.loop import Keyframe, LoopEdge
 from ..pipeline.odometry import resolve_device
 
@@ -51,17 +63,21 @@ class HbaRunner:
     """Global BA on `device` (CUDA by default; raises when CUDA is absent
     and no device is named).
 
+    mesh: a `parallel.multihost.WinMesh`; bottom-up windows are then
+    batched `fleet_batch` at a time (default: the mesh size) and split over
+    its ranks. Without one each window runs as it completes.
+
     `host_syncs` counts the device-to-host reads; `window_log` holds one
-    dict per window step (padded width, rounds, the phase after each
-    round, host syncs)."""
+    dict per window step or batch (padded width, windows `Nw` of a batch,
+    rounds, the phase after each round, host syncs)."""
 
     def __init__(self, cfg: SlamConfig, kf_point_max: int = 8192,
                  capacity: int = 1 << 13, unique_max: int = 4096,
                  mesh=None, fleet_batch: int | None = None, device=None):
-        if mesh is not None or fleet_batch is not None:
-            raise NotImplementedError(
-                "GBA windows sharded over several cards are not ported yet "
-                "(ROADMAP.md Queue A item 7)")
+        if fleet_batch is not None and mesh is None:
+            raise ValueError("fleet_batch batches windows over a mesh; for "
+                             "one card pass "
+                             "mesh=global_win_mesh(min_devices=1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kf_point_max = kf_point_max
@@ -75,6 +91,11 @@ class HbaRunner:
         # submap stay on the device until window N+1 is added
         self._inflight_step = None   # (window, device step outputs)
         self._inflight_cond = None   # (first_kf, down, dmask)
+        self.mesh = mesh
+        self._fleet_batch = (fleet_batch if fleet_batch is not None
+                             else (mesh.size if mesh is not None else 1))
+        self._win_queue: list[list[Keyframe]] = []
+        self._fleet_inflight = None  # (queue, fleet outputs)
         self.host_syncs = 0
         self.window_log: list[dict] = []
 
@@ -111,22 +132,33 @@ class HbaRunner:
             plane_thr=(cfg.map.plane_thr[0],))
         return coarse, fine
 
-    def _build_and_lm(self, coarse_cfg, factor_max, vox, min_eig, thr,
-                      clouds, masks, Rs, ps, wmask):
-        """One round: the window's map at voxel size `vox`, planes refit at
-        the (min_eig, thr) gates, the factors harvested, 3 LM iterations."""
-        W, P = clouds.shape[0], clouds.shape[1]
-        lv = vm.empty_level(self._capacity, W, device=self.device)
+    def _round_map(self, coarse_cfg, factor_max, vox, min_eig, thr,
+                   clouds, masks, Rs, ps, wmask):
+        """A round's map: the window's clouds at voxel size `vox`, planes
+        refit at the (min_eig, thr) gates, the factors harvested. Returns
+        (levels, factors). With a leading window axis on the inputs the
+        gates are (Nw,) tensors and every window builds its own map."""
+        lead = clouds.shape[:-3]
+        W, P = clouds.shape[-3], clouds.shape[-2]
+        lv = vm.empty_level(self._capacity, W, device=self.device,
+                            nw=lead[0] if lead else None)
         mp = torch.arange(W, dtype=torch.int32, device=self.device)
         tr = clouds.new_zeros((P,))
         for i in range(W):
-            wld = clouds[i] @ Rs[i].T + ps[i]
+            wld = (clouds[..., i, :, :] @ Rs[..., i, :, :].transpose(-1, -2)
+                   + ps[..., i, None, :])
             lv, _, _, _ = vm.insert_scan_level(
-                lv, vox, self._unique_max, wld, clouds[i], tr,
-                masks[i] * wmask[i], i, 0.0)
+                lv, vox, self._unique_max, wld, clouds[..., i, :, :], tr,
+                masks[..., i, :] * wmask[..., i, None], i, 0.0)
         levels = vm.refresh_planes((lv,), coarse_cfg, Rs, ps, mp, W,
                                    min_eigen_value=min_eig, plane_thr=thr)
-        factors = vm.harvest_t(levels, coarse_cfg, mp, factor_max)
+        return levels, vm.harvest_t(levels, coarse_cfg, mp, factor_max)
+
+    def _build_and_lm(self, coarse_cfg, factor_max, vox, min_eig, thr,
+                      clouds, masks, Rs, ps, wmask):
+        """One round: the round's map (`_round_map`) and 3 LM iterations."""
+        _, factors = self._round_map(coarse_cfg, factor_max, vox, min_eig,
+                                     thr, clouds, masks, Rs, ps, wmask)
         return opt.lm_lidar(Rs, ps, factors, wmask, max_iter=3)
 
     def _window_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
@@ -163,6 +195,59 @@ class HbaRunner:
         self.window_log.append(dict(W=W, rounds=it, phases=phases,
                                     syncs=self.host_syncs - syncs0))
         return Rs, ps, H, r0_first, r1
+
+    def _batch_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
+        """The window step over a batch with a leading window axis (clouds
+        (Nw, W, P, 3), ...): one batched round a trip, each window at its
+        own phase's voxel size and gates, until every window has stopped
+        (`total_max_iter` rounds or its second convergence). A stopped
+        window's carry is frozen. The host reads every window's phase and
+        round count in one copy a round. Returns the device tensors (Rs,
+        ps, H, r0 of the first round, r1 of the last), each (Nw, ...)."""
+        Nw, W = clouds.shape[0], clouds.shape[1]
+        coarse_cfg, fine_cfg = self._map_cfgs(W)
+        g = self.cfg.gba
+        total_iter = max(int(g.total_max_iter), 2)
+        syncs0 = self.host_syncs
+        it = torch.zeros((Nw,), dtype=torch.int32, device=self.device)
+        phase = torch.zeros_like(it)
+        H = Rs.new_zeros((Nw, 6 * W, 6 * W))
+        r0_first, r1 = Rs.new_zeros((Nw,)), Rs.new_zeros((Nw,))
+        phases, live = [], True          # every window runs its first round
+        while live:
+            fine = phase > 0
+            vox = torch.where(fine, fine_cfg.voxel_size, g.voxel_size)
+            min_eig = torch.where(fine, fine_cfg.min_eigen_value,
+                                  g.min_eigen_value)
+            thr = torch.where(fine, fine_cfg.plane_thr[0], g.eigen_value_thr)
+            Rs2, ps2, H2, r0, r1_n, _ = self._build_and_lm(
+                coarse_cfg, factor_max, vox, min_eig, thr, clouds, masks, Rs,
+                ps, wmask)
+            rel = torch.abs(r0 - r1_n) / torch.clamp(r0, min=1e-12)
+            run = (it < total_iter) & (phase < 2)
+            Rs = torch.where(run[:, None, None, None], Rs2, Rs)
+            ps = torch.where(run[:, None, None], ps2, ps)
+            H = torch.where(run[:, None, None], H2, H)
+            r0_first = torch.where(run & (it == 0), r0, r0_first)
+            r1 = torch.where(run, r1_n, r1)
+            phase = torch.where(run, phase + (rel < CONV_THR).to(torch.int32),
+                                phase)
+            it = torch.where(run, it + 1, it)
+            ph, its = self._fetch(phase, it)     # the round's one host read
+            phases.append(ph.astype(int).tolist())
+            live = bool(np.any((its < total_iter) & (ph < 2)))
+        self.window_log.append(dict(W=W, Nw=Nw, rounds=len(phases),
+                                    phases=phases,
+                                    syncs=self.host_syncs - syncs0))
+        return Rs, ps, H, r0_first, r1
+
+    def _get_fleet(self, W: int, factor_max: int):
+        """The batched window step, its edges and its condensed submaps
+        (`make_window_fleet`) over this runner's mesh."""
+        return make_window_fleet(
+            self.mesh, lambda *a: self._batch_step(*a, factor_max), W,
+            condense_vs=self.cfg.map.voxel_size / 8.0,
+            point_max=self.kf_point_max)
 
     def _dispatch_window(self, kfs: list[Keyframe], W_pad: int,
                          factor_max: int = 1024):
@@ -263,9 +348,12 @@ class HbaRunner:
         return r0, r1
 
     def drain(self):
-        """Read everything still in flight; called by flush, total_ba and
-        top_down so the edge and submap lists are complete."""
+        """Read everything still in flight (the window, its condense and
+        the fleet's batch); called by flush, total_ba and top_down so the
+        edge and submap lists are complete."""
         out = None
+        if self._fleet_inflight is not None:
+            out = self._harvest_fleet()
         if self._inflight_step is not None:
             self._harvest_cond()
             step, self._inflight_step = self._inflight_step, None
@@ -278,13 +366,18 @@ class HbaRunner:
         """Stream one keyframe; a window BA runs whenever `win_size` have
         accumulated (stride `stride`), as thd_globalmapping consumes them
         (:3066-3096). The previous window is harvested after this one
-        ran."""
+        ran. With a mesh, windows queue and run `fleet_batch` at a time."""
         g = self.cfg.gba
         self._pending.append(kf)
         if len(self._pending) < g.win_size:
             return None
         window = self._pending[:g.win_size]
         self._pending = self._pending[g.stride:]
+        if self.mesh is not None:
+            self._win_queue.append(window)
+            if len(self._win_queue) >= self._fleet_batch:
+                return self._flush_windows()
+            return dict(queued=len(self._win_queue))
         outs = self._dispatch_window(window, g.win_size)
         prev, self._inflight_step = self._inflight_step, (window, outs)
         r0 = r1 = None
@@ -294,9 +387,75 @@ class HbaRunner:
         return dict(r0=r0, r1=r1, n_edges=len(self.edges1),
                     n_submaps=len(self.submaps), in_flight=True)
 
+    def _flush_windows(self):
+        """Run the queued windows through the fleet (the batch padded to a
+        multiple of max(fleet_batch, mesh size) by repeating its first
+        window; the padded results are thrown away), then harvest the
+        previous batch."""
+        if not self._win_queue:
+            return self._harvest_fleet()
+        g = self.cfg.gba
+        W, Pm = g.win_size, self.kf_point_max
+        queue, self._win_queue = self._win_queue, []
+        n_pad = (-len(queue)) % max(self._fleet_batch, self.mesh.size)
+        batch = queue + [queue[0]] * n_pad
+        Nb = len(batch)
+        clouds = np.zeros((Nb, W, Pm, 3), np.float32)
+        masks = np.zeros((Nb, W, Pm), np.float32)
+        Rs = np.tile(np.eye(3, dtype=np.float32), (Nb, W, 1, 1))
+        ps = np.zeros((Nb, W, 3), np.float32)
+        for b, window in enumerate(batch):
+            for i, kf in enumerate(window):
+                m = min(kf.cloud.shape[0], Pm)
+                clouds[b, i, :m] = kf.cloud[:m]
+                masks[b, i, :m] = kf.mask[:m]
+                Rs[b, i] = kf.R0
+                ps[b, i] = kf.p0
+        outs = self._get_fleet(W, 1024)(
+            self._t(clouds), self._t(masks), self._t(Rs), self._t(ps),
+            self._t(np.ones((Nb, W), np.float32)))
+        prev, self._fleet_inflight = self._fleet_inflight, (queue, outs)
+        if prev is None:
+            return dict(dispatched=len(queue))
+        return self._harvest_fleet(prev)
+
+    def _harvest_fleet(self, inflight=None):
+        """Read one batch's outputs in one copy (default: the batch in
+        flight) and append its edges and submaps in window order."""
+        if inflight is None:
+            inflight, self._fleet_inflight = self._fleet_inflight, None
+        if inflight is None:
+            return None
+        W = self.cfg.gba.win_size
+        queue, outs = inflight
+        Rs2, ps2, rel_R, rel_p, v6, evalid, r0, r1, downs, dmasks = (
+            self._fetch(*outs))
+        pi, pj = np.triu_indices(W, 1)
+        for b, window in enumerate(queue):
+            for m in range(len(pi)):
+                if not evalid[b, m]:
+                    continue
+                a, c = window[pi[m]], window[pj[m]]
+                self.edges1.append(LoopEdge(
+                    id_a=a.session, id_b=c.session, ord_a=a.scan_id,
+                    ord_b=c.scan_id, R=rel_R[b, m].astype(np.float64),
+                    t=rel_p[b, m].astype(np.float64),
+                    v6=v6[b, m].astype(np.float64)))
+            first = window[0]
+            self.submaps.append(Keyframe(
+                kf_index=len(self.submaps), scan_id=first.scan_id,
+                session=first.session, R0=Rs2[b, 0].astype(np.float64),
+                p0=ps2[b, 0].astype(np.float64), cloud=downs[b],
+                mask=dmasks[b], jour=first.jour))
+        return dict(flushed=len(queue), r0=float(r0[0]), r1=float(r1[0]),
+                    n_edges=len(self.edges1), n_submaps=len(self.submaps))
+
     def flush(self):
-        """Read every window still in flight (end of stream)."""
-        return self.drain()
+        """Run the queued windows and read everything in flight (end of
+        stream)."""
+        out = self._flush_windows() if self.mesh is not None else None
+        out2 = self.drain()
+        return out2 if out2 is not None else out
 
     def bottom_up(self, keyframes):
         for kf in keyframes:

@@ -14,6 +14,14 @@ XLA's drop-mode scatters become writes into a spare row at index C
 (`core.tensors.drop_set/drop_add`); every gather index is clamped or
 masked into range first. Functions return new levels and never modify
 their inputs.
+
+The global BA's path (`empty_level`, `insert_scan_level`, the whole-table
+`refresh_planes`, `harvest_t`, `compact_indices`) also takes a leading
+window axis: a level of `empty_level(nw=...)` holds Nw windows' tables,
+every array with the axis in front, and each window's result is the one
+it gets alone (the JAX package vmaps these functions). The voxel size and
+plane gates may then be (Nw,) tensors, since the windows of one batch can
+be in different phases.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from ..config import MapConfig
 from ..core import cluster as cl
 from ..core.cluster import Cluster
 from ..core.eig3 import eigh3
-from ..core.tensors import drop_add, drop_set, tmap
+from ..core.tensors import (drop_add, drop_set, tmap, window_einsum,
+                            window_wsum)
 from ..ops import voxel_hash as vh
 from ..ops import moments as mo
 
@@ -75,25 +84,28 @@ class VoxelLevel:
 
 
 def empty_level(capacity: int, win_size: int, track_max: int = 0,
-                device=None) -> VoxelLevel:
+                device=None, nw: int | None = None) -> VoxelLevel:
+    """An empty level; with `nw`, nw of them along a leading window axis."""
     if track_max:
         raise NotImplementedError("touched-slot tracking is not ported")
-    keys, occ = vh.empty_table(capacity, device)
+    b = () if nw is None else (nw,)
+    keys, occ = vh.empty_table(capacity, device, b)
     C = capacity
     z = dict(dtype=torch.float32, device=device)
     return VoxelLevel(
         keys=keys, occ=occ,
-        win=Cluster.empty((win_size, C), device=device),
-        win_nv=torch.zeros((win_size, C, NV), **z),
-        fix=Cluster.empty((C,), device=device),
-        fix_nv=torch.zeros((C, NV), **z),
-        tot=Cluster.empty((C,), device=device),
-        tot_nv=torch.zeros((C, NV), **z),
-        state=torch.zeros((C,), dtype=torch.int32, device=device),
-        slab=torch.zeros((C, SLAB), **z),
-        lam=torch.zeros((C, 3), **z),
-        jour=torch.zeros((C,), **z),
-        tsl=torch.full((win_size, 0), C, dtype=torch.int32, device=device),
+        win=Cluster.empty(b + (win_size, C), device=device),
+        win_nv=torch.zeros(b + (win_size, C, NV), **z),
+        fix=Cluster.empty(b + (C,), device=device),
+        fix_nv=torch.zeros(b + (C, NV), **z),
+        tot=Cluster.empty(b + (C,), device=device),
+        tot_nv=torch.zeros(b + (C, NV), **z),
+        state=torch.zeros(b + (C,), dtype=torch.int32, device=device),
+        slab=torch.zeros(b + (C, SLAB), **z),
+        lam=torch.zeros(b + (C, 3), **z),
+        jour=torch.zeros(b + (C,), **z),
+        tsl=torch.full(b + (win_size, 0), C, dtype=torch.int32,
+                       device=device),
     )
 
 
@@ -124,11 +136,14 @@ def empty_map(cfg: MapConfig, device=None):
                  for c in cfg.capacities)
 
 
-def _set_slot(full, frame_slot, new):
-    """Functional `full.at[frame_slot].set(new)` over a cluster or tensor."""
+def _set_slot(full, frame_slot, new, axis: int = 0):
+    """Functional `full.at[frame_slot].set(new)` along `axis` over a
+    cluster or tensor."""
+    at = (slice(None),) * axis + (frame_slot,)
+
     def one(a, b):
         a = a.clone()
-        a[frame_slot] = b
+        a[at] = b
         return a
     return tmap(one, full, new)
 
@@ -146,39 +161,64 @@ def insert_scan_level(lv: VoxelLevel, level_size: float, unique_max: int,
                       pts_world, pts_local, tr_pt, mask, frame_slot, jour):
     """Insert one scan's points into a level at window slot `frame_slot`
     (dense-column path). Returns (level, touched_slots (U,),
-    touched_valid (U,), dropped)."""
-    if lv.tsl.shape[1]:
+    touched_valid (U,), dropped).
+
+    With a leading window axis (a level of `empty_level(nw=...)`, points
+    (Nw, P, 3), mask (Nw, P), `level_size` a float or an (Nw,) tensor)
+    each window's scan goes into its own table at the same frame slot, and
+    every output gains the axis. The per-slot sums run over the Nw tables
+    laid end to end, each slot's in point order."""
+    if lv.tsl.shape[-1]:
         raise NotImplementedError("touched-slot tracking is not ported")
-    C = lv.keys.shape[0]
+    lead = lv.keys.shape[:-2]
+    C = lv.keys.shape[-2]
+    NC = lv.occ.numel()
+    if torch.is_tensor(level_size):
+        level_size = level_size.reshape(lead + (1, 1))
     keys = vh.voxel_key(pts_world, level_size)
-    unique_max = min(unique_max, pts_world.shape[0])
+    unique_max = min(unique_max, pts_world.shape[-2])
     uniq, uvalid, inv = vh.dedup_keys(keys, mask > 0, unique_max)
     tkeys, occ, uslots = vh.insert(lv.keys, lv.occ, uniq, uvalid)
-    nv_pt = expand_noise(tr_pt)
+    nv_pt = expand_noise(tr_pt).expand(pts_local.shape[:-1] + (NV,))
 
     inv = inv.long()
     us = uslots.long()
-    pslot = torch.where(inv >= 0, us[torch.clamp(inv, min=0)], -1)
-    ok = (mask > 0) & (pslot >= 0)
-    seg = torch.where(ok, pslot, C)
-    w = ok.to(pts_local.dtype)
-    n_add = drop_add(pts_local.new_zeros((C,)), seg, w)
-    sum_p = drop_add(pts_local.new_zeros((C, 3)), seg, pts_local * w[:, None])
+    pslot = torch.where(inv >= 0, torch.gather(us, -1, torch.clamp(inv, min=0)),
+                        -1)
+    ok = ((mask > 0) & (pslot >= 0)).reshape(-1)
+    if lead:                        # slots of the tables laid end to end
+        pslot = torch.where(pslot >= 0, pslot + vh.block_base(
+            pslot.shape[0], C, pslot.device), -1)
+    pslot = pslot.reshape(-1)
+    pts = pts_local.reshape(-1, 3)
+    seg = torch.where(ok, pslot, NC)
+    w = ok.to(pts.dtype)
+    n_add = drop_add(pts.new_zeros((NC,)), seg, w)
+    sum_p = drop_add(pts.new_zeros((NC, 3)), seg, pts * w[:, None])
     mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
-    d = (pts_local - mu_add[torch.clamp(pslot, min=0)]) * w[:, None]
-    S_add = drop_add(pts_local.new_zeros((C, 3, 3)), seg,
+    d = (pts - mu_add[torch.clamp(pslot, min=0)]) * w[:, None]
+    S_add = drop_add(pts.new_zeros((NC, 3, 3)), seg,
                      d[:, :, None] * d[:, None, :])
-    nv_add = drop_add(pts_local.new_zeros((C, NV)), seg, nv_pt * w[:, None])
-    merged = cl.merge(lv.win[frame_slot], Cluster(n=n_add, mu=mu_add, S=S_add))
-    win = _set_slot(lv.win, frame_slot, merged)
-    win_nv = _set_slot(lv.win_nv, frame_slot, lv.win_nv[frame_slot] + nv_add)
+    nv_add = drop_add(pts.new_zeros((NC, NV)), seg,
+                      nv_pt.reshape(-1, NV) * w[:, None])
+    added = Cluster(n=n_add.reshape(lead + (C,)),
+                    mu=mu_add.reshape(lead + (C, 3)),
+                    S=S_add.reshape(lead + (C, 3, 3)))
+    at = (slice(None),) * len(lead) + (frame_slot,)
+    ax = len(lead)
+    win = _set_slot(lv.win, frame_slot, cl.merge(lv.win[at], added), ax)
+    win_nv = _set_slot(lv.win_nv, frame_slot,
+                       lv.win_nv[at] + nv_add.reshape(lead + (C, NV)), ax)
 
-    newly = uvalid & (us >= 0) & ~lv.occ[torch.clamp(us, min=0)]
-    jour_arr = drop_set(lv.jour, torch.where(newly, us, C),
-                        torch.full_like(us, 0, dtype=lv.jour.dtype) + jour)
+    newly = (uvalid & (us >= 0)
+             & ~torch.gather(lv.occ, -1, torch.clamp(us, min=0)))
+    jour_arr = drop_set(lv.jour.reshape(-1),
+                        vh.flat_index(torch.where(newly, us, -1), C),
+                        (torch.full_like(us, 0, dtype=lv.jour.dtype)
+                         + jour).reshape(-1)).reshape(lv.jour.shape)
     lv = dataclasses.replace(lv, keys=tkeys, occ=occ, win=win,
                              win_nv=win_nv, jour=jour_arr)
-    dropped = torch.sum((uvalid & (us < 0)).to(torch.int32))
+    dropped = torch.sum((uvalid & (us < 0)).to(torch.int32), dim=-1)
     return lv, uslots, uvalid & (us >= 0), dropped
 
 
@@ -358,7 +398,9 @@ def _phys_poses(Rs, ps, mp, win_count):
 
 def _total_over_frames(win: Cluster, win_nv, fix: Cluster, fix_nv, Rs_p,
                        ps_p, fmask):
-    """fix + sum_w transform(win[w], pose_w) as one anchored reduction."""
+    """fix + sum_w transform(win[w], pose_w) as one anchored reduction
+    (`window_wsum` and `window_einsum` keep a window's sums under vmap,
+    see `core.tensors.per_window`)."""
     n_w = win.n * fmask[:, None]
     mu_w = torch.einsum("wij,wbj->wbi", Rs_p, win.mu) + ps_p[:, None]
     S_w = Rs_p[:, None] @ win.S @ Rs_p.transpose(-1, -2)[:, None]
@@ -369,8 +411,8 @@ def _total_over_frames(win: Cluster, win_nv, fix: Cluster, fix_nv, Rs_p,
     d_w = mu_w - mu_t[None]
     d_f = fix.mu - mu_t
     S_t = (fix.S + fix.n[:, None, None] * (d_f[:, :, None] * d_f[:, None, :])
-           + torch.einsum("wbij,w->bij", S_w, fmask)
-           + torch.einsum("wb,wbi,wbj->bij", n_w, d_w, d_w))
+           + window_wsum(S_w, fmask)
+           + window_einsum("wb,wbi,wbj->bij", n_w, d_w, d_w))
     empty = (n_t == 0)[:, None]
     mu_t = torch.where(empty, 0.0, mu_t)
     S_t = torch.where(empty[..., None], 0.0, S_t)
@@ -381,10 +423,25 @@ def _total_over_frames(win: Cluster, win_nv, fix: Cluster, fix_nv, Rs_p,
     return Cluster(n=n_t, mu=mu_t, S=S_t), nv
 
 
+def _total_flat(wn, wmu, wS, wnv, fn, fmu, fS, fnv, Rs, ps, mp, win_count):
+    total, nv = _total_over_frames(
+        Cluster(n=wn, mu=wmu, S=wS), wnv, Cluster(n=fn, mu=fmu, S=fS), fnv,
+        *_phys_poses(Rs, ps, mp, win_count))
+    return total.n, total.mu, total.S, nv
+
+
 def total_cluster_level(lv: VoxelLevel, Rs, ps, mp, win_count):
-    Rs_p, ps_p, fmask = _phys_poses(Rs, ps, mp, win_count)
-    return _total_over_frames(lv.win, lv.win_nv, lv.fix, lv.fix_nv,
-                              Rs_p, ps_p, fmask)
+    """The level's total clusters over its window frames and fixed points;
+    a level with a leading window axis (poses (Nw, W, ...), one `mp`)
+    through torch.func.vmap, each window's sums in their own order."""
+    args = (lv.win.n, lv.win.mu, lv.win.S, lv.win_nv, lv.fix.n, lv.fix.mu,
+            lv.fix.S, lv.fix_nv, Rs, ps, mp, win_count)
+    if lv.keys.dim() == 2:
+        n, mu, S, nv = _total_flat(*args)
+    else:
+        n, mu, S, nv = torch.func.vmap(
+            _total_flat, in_dims=(0,) * 10 + (None, None))(*args)
+    return Cluster(n=n, mu=mu, S=S), nv
 
 
 def _plane_fit(total: Cluster, nv_total, occ, layer, cfg: MapConfig,
@@ -394,27 +451,27 @@ def _plane_fit(total: Cluster, nv_total, occ, layer, cfg: MapConfig,
     lam, V = eigh3(covm)
     n = total.n
     enough = n > cfg.min_point[layer]
-    is_plane = (occ & enough & (lam[:, 0] < min_eig)
-                & (lam[:, 0] < thr * lam[:, 2]))
+    is_plane = (occ & enough & (lam[..., 0] < min_eig)
+                & (lam[..., 0] < thr * lam[..., 2]))
     can_subdiv = occ & enough & ~is_plane & (layer < cfg.max_layer)
     state = torch.where(is_plane, STATE_PLANE,
                         torch.where(can_subdiv, STATE_SUBDIV,
                                     STATE_NONE)).to(torch.int32)
-    u0 = V[:, :, 0]
-    us = torch.sum(u0 * nv_total[:, 0:3], dim=-1)
-    asum = nv_total[:, 3]
+    u0 = V[..., :, 0]
+    us = torch.sum(u0 * nv_total[..., 0:3], dim=-1)
+    asum = nv_total[..., 3]
     den = torch.where(torch.abs(asum) > 1e-12, asum, float("inf"))
-    vsum_n = torch.clamp(us * us / den + nv_total[:, 4], min=1e-12)
+    vsum_n = torch.clamp(us * us / den + nv_total[..., 4], min=1e-12)
     sigma2 = vsum_n / torch.clamp(n, min=1.0)
-    l0, l1, l2 = lam[:, 0], lam[:, 1], lam[:, 2]
+    l0, l1, l2 = lam[..., 0], lam[..., 1], lam[..., 2]
     c_1 = (l0 + l1) / torch.clamp((l1 - l0) ** 2, min=1e-12)
     c_2 = (l0 + l2) / torch.clamp((l2 - l0) ** 2, min=1e-12)
     n_tot = torch.clamp(n, min=1.0)
     cmean = 0.5 * (c_1 + c_2) * sigma2 / n_tot
     cvar = sigma2 / n_tot
-    slab = torch.cat([u0, total.mu, l2[:, None], cmean[:, None],
-                      cvar[:, None], state.to(covm.dtype)[:, None],
-                      covm.new_zeros((state.shape[0], SLAB - 10))], dim=1)
+    slab = torch.cat([u0, total.mu, l2[..., None], cmean[..., None],
+                      cvar[..., None], state.to(covm.dtype)[..., None],
+                      covm.new_zeros(state.shape + (SLAB - 10,))], dim=-1)
     return state, slab, lam
 
 
@@ -422,10 +479,17 @@ def refresh_planes_level(lv: VoxelLevel, layer: int, cfg: MapConfig, Rs, ps,
                          mp, win_count, min_eigen_value=None, plane_thr=None,
                          slots=None, svalid=None) -> VoxelLevel:
     """Re-fit planes: the whole table (and resync `tot`), or with `slots`
-    only those voxels, straight from the running total."""
+    only those voxels, straight from the running total. The whole-table
+    path takes a leading window axis (poses (Nw, W, ...), gates floats or
+    (Nw,) tensors)."""
     min_eig = cfg.min_eigen_value if min_eigen_value is None else min_eigen_value
     thr = cfg.plane_thr[layer] if plane_thr is None else plane_thr
     if slots is None:
+        lead = lv.keys.shape[:-2]
+        if torch.is_tensor(min_eig):
+            min_eig = min_eig.reshape(lead + (1,))
+        if torch.is_tensor(thr):
+            thr = thr.reshape(lead + (1,))
         total, nv_total = total_cluster_level(lv, Rs, ps, mp, win_count)
         state, slab, lam = _plane_fit(total, nv_total, lv.occ, layer, cfg,
                                       min_eig, thr)
@@ -595,12 +659,13 @@ def map_stats(levels):
 # ---------------------------------------------------------------------------
 
 def compact_indices(flags: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """First `size` indices where flags is True, ascending, padded with
-    `fill` (cumsum + left binary search, as the JAX package)."""
-    C = flags.shape[0]
-    cs = torch.cumsum(flags.to(torch.int64), 0)
+    """First `size` indices where flags (..., C) is True, ascending, padded
+    with `fill` (cumsum + left binary search, as the JAX package)."""
+    C = flags.shape[-1]
+    cs = torch.cumsum(flags.to(torch.int64), -1)
     want = torch.arange(1, size + 1, dtype=torch.int64, device=flags.device)
-    idx = torch.searchsorted(cs, want)
+    idx = torch.searchsorted(cs, want.expand(cs.shape[:-1] + (size,))
+                             .contiguous())
     return torch.where(idx < C, idx, fill)
 
 
@@ -608,24 +673,31 @@ def harvest_level_t(lv: VoxelLevel, cfg: MapConfig, mp, factor_max: int,
                     eig_ratio: float):
     """Eligible plane voxels (plane leaf, lam0 <= eig_ratio lam1, live
     window points) as factor-minor arrays: (n_l (W,F), mu_l (W,3,F),
-    S_l (W,3,3,F), fix_n (F,), fix_mu (3,F), fix_S (3,3,F), vf (F,))."""
-    C = lv.keys.shape[0]
-    n_win = torch.sum(lv.win.n, dim=0)
+    S_l (W,3,3,F), fix_n (F,), fix_mu (3,F), fix_S (3,3,F), vf (F,)); a
+    level with a leading window axis gives each array that axis."""
+    lead = lv.keys.shape[:-2]
+    C = lv.keys.shape[-2]
+    n_win = torch.sum(lv.win.n, dim=-2)
     eligible = ((lv.state == STATE_PLANE)
-                & (lv.lam[:, 0] <= eig_ratio * torch.clamp(lv.lam[:, 1],
-                                                           min=1e-12))
+                & (lv.lam[..., 0] <= eig_ratio * torch.clamp(lv.lam[..., 1],
+                                                             min=1e-12))
                 & (n_win > 0))
     idx = compact_indices(eligible, factor_max, C)
     valid = idx < C
     safe = torch.clamp(idx, max=C - 1)
     vf = valid.to(lv.win.mu.dtype)
-    rows, cols = mp.long()[:, None], safe[None, :]
-    n_l = lv.win.n[rows, cols] * vf[None]
-    mu_l = lv.win.mu[rows, cols].permute(0, 2, 1) * vf[None, None]
-    S_l = lv.win.S[rows, cols].permute(0, 2, 3, 1) * vf[None, None, None]
-    fix_n = lv.fix.n[safe] * vf
-    fix_mu = lv.fix.mu[safe].T * vf[None]
-    fix_S = lv.fix.S[safe].permute(1, 2, 0) * vf[None, None]
+    b = ((torch.arange(lead[0], device=safe.device)[:, None],) if lead
+         else ())                   # each window gathers from its own table
+    at_w = (b[0][..., None],) if lead else ()
+    rows, cols = mp.long()[:, None], safe[..., None, :]
+    n_l = lv.win.n[at_w + (rows, cols)] * vf[..., None, :]
+    mu_l = (lv.win.mu[at_w + (rows, cols)].movedim(-1, -2)
+            * vf[..., None, None, :])
+    S_l = (lv.win.S[at_w + (rows, cols)].movedim(-3, -1)
+           * vf[..., None, None, None, :])
+    fix_n = lv.fix.n[b + (safe,)] * vf
+    fix_mu = lv.fix.mu[b + (safe,)].transpose(-1, -2) * vf[..., None, :]
+    fix_S = lv.fix.S[b + (safe,)].movedim(-3, -1) * vf[..., None, None, :]
     return n_l, mu_l, S_l, fix_n, fix_mu, fix_S, vf
 
 

@@ -13,14 +13,18 @@ from . import voxel_hash as vh
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
                      voxel_size: float, out_max: int):
-    """points (N, 3), mask (N,) -> (out (out_max, 3), out_mask, counts)."""
+    """points (N, 3), mask (N,) -> (out (out_max, 3), out_mask, counts).
+    With a leading window axis (points (Nw, N, 3), mask (Nw, N)) each
+    window is downsampled on its own and every output gains the axis."""
     keys = vh.voxel_key(points, voxel_size)
     _, uvalid, inv = vh.dedup_keys(keys, mask > 0, out_max)
-    U = out_max
-    inv = inv.to(torch.int64)
-    seg = torch.where(inv >= 0, inv, U)
-    w = ((mask > 0) & (inv >= 0)).to(points.dtype)
+    lead = points.shape[:-2]
+    U = uvalid.numel()                      # Nw * out_max rows in all
+    seg = vh.flat_index(inv, out_max)
+    w = ((mask > 0) & (inv >= 0)).to(points.dtype).reshape(-1)
     n = drop_add(points.new_zeros((U,)), seg, w)
-    s = drop_add(points.new_zeros((U, 3)), seg, points * w[:, None])
+    s = drop_add(points.new_zeros((U, 3)), seg,
+                 points.reshape(-1, 3) * w[:, None])
     out = s / torch.clamp(n, min=1.0)[:, None]
-    return out, uvalid & (n > 0), n
+    n = n.reshape(lead + (out_max,))
+    return out.reshape(lead + (out_max, 3)), uvalid & (n > 0), n

@@ -7,9 +7,16 @@ two place every key in the same slot. Torch has no uint32 arithmetic:
 the hash runs in int64 with every product and shift reduced mod 2^32,
 and 32x32-bit products are split so no int64 product can overflow.
 XLA's `mode="drop"` scatters become writes into one spare row at index C.
+
+`empty_table`, `insert` and `dedup_keys` also take a leading window axis
+(Nw independent tables, the global BA's batched windows; the JAX package
+vmaps them). The Nw tables are laid end to end as one (Nw*C) table and
+each result is bitwise the one the window gets alone.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,11 +61,32 @@ def _cands(h0: torch.Tensor, capacity: int) -> torch.Tensor:
     return (h0.to(torch.int64)[..., None] + (r * (r + 1)) // 2) % capacity
 
 
-def empty_table(capacity: int, device=None):
-    keys = torch.full((capacity, 3), EMPTY_KEY, dtype=torch.int32,
+def empty_table(capacity: int, device=None, batch: tuple = ()):
+    """Free table (keys (*batch, C, 3), occ (*batch, C))."""
+    batch = tuple(batch)
+    keys = torch.full(batch + (capacity, 3), EMPTY_KEY, dtype=torch.int32,
                       device=device)
-    occ = torch.zeros((capacity,), dtype=torch.bool, device=device)
+    occ = torch.zeros(batch + (capacity,), dtype=torch.bool, device=device)
     return keys, occ
+
+
+def block_base(nw: int, size: int, device) -> torch.Tensor:
+    """(nw, 1) first row of each window's block of `size` rows."""
+    return (torch.arange(nw, dtype=torch.int64, device=device) * size)[:, None]
+
+
+def flat_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Window-local row indices (..., N) into blocks of `size` rows, -1 for
+    none -> indices into the blocks laid end to end (flattened), every -1
+    sent to the spare row past the last block (`core.tensors.drop_add`'s)."""
+    lead = idx.shape[:-1]
+    nw = math.prod(lead)
+    idx = idx.long()
+    g = idx
+    if lead:
+        g = (idx.reshape(nw, -1) + block_base(nw, size, idx.device)
+             ).reshape(idx.shape)
+    return torch.where(idx >= 0, g, nw * size).reshape(-1)
 
 
 def _first_true(hit: torch.Tensor) -> torch.Tensor:
@@ -89,11 +117,27 @@ def insert(table_keys: torch.Tensor, occ: torch.Tensor,
     Existing keys resolve to their slot from one (Q, PROBES) gather; free
     slots are claimed in PROBES sequential scatter-min elections with tag
     r*Q + query index (earlier rounds always win). Rows whose chain is
-    exhausted get slot -1. The input tables are not modified."""
-    C = table_keys.shape[0]
-    Q = queries.shape[0]
+    exhausted get slot -1. The input tables are not modified.
+
+    With a leading window axis (table_keys (Nw, C, 3), occ (Nw, C),
+    queries (Nw, Q, 3), valid (Nw, Q)) each window's probes are offset by
+    its block of the (Nw*C) table and the tag r*Nw*Q + w*Q + q orders by
+    (round, window, query): windows never share a slot, so each gets the
+    slots it gets alone. Slots are window-local (Nw, Q)."""
+    C = table_keys.shape[-2]
+    lead = queries.shape[:-2]
+    nw = math.prod(lead)
+    Q = nw * queries.shape[-2]
     dev = queries.device
-    cands = _cands(hash_key(queries, C), C)                   # (Q, PROBES)
+    cands = _cands(hash_key(queries, C), C)           # (*lead, Qw, PROBES)
+    if lead:
+        base = block_base(nw, C, dev)
+        cands = (cands.reshape(nw, -1, PROBES) + base[:, :, None]
+                 ).reshape(Q, PROBES)
+        out_shape = (table_keys.shape, occ.shape)
+        table_keys, occ = table_keys.reshape(-1, 3), occ.reshape(-1)
+        queries, valid = queries.reshape(Q, 3), valid.reshape(Q)
+        C = nw * C
     ks = table_keys[cands]
     occ_r = ks[..., 0] != EMPTY_KEY
     hits = occ_r & torch.all(ks == queries[:, None, :], dim=-1)
@@ -123,6 +167,12 @@ def insert(table_keys: torch.Tensor, occ: torch.Tensor,
     keys_p[tgt] = queries.to(table_keys.dtype)
     occ_p = torch.cat([occ, occ.new_zeros((1,))])
     occ_p.index_fill_(0, tgt, True)        # a scalar fill, no host copy
+    if lead:
+        slot = slot.reshape(nw, -1)
+        slot = torch.where(slot >= 0, slot - base, -1).reshape(
+            lead + slot.shape[-1:])
+        return (keys_p[:C].reshape(out_shape[0]),
+                occ_p[:C].reshape(out_shape[1]), slot.to(torch.int32))
     return keys_p[:C], occ_p[:C], slot.to(torch.int32)
 
 
@@ -132,14 +182,26 @@ def dedup_keys(keys: torch.Tensor, valid: torch.Tensor, unique_max: int):
 
     Sorted by (hash, packed xy, sign-flipped z) exactly like the JAX
     package's lexsort: three stable sorts, least significant key first,
-    so overflow drops the same pseudo-random subset of uniques."""
-    N = keys.shape[0]
+    so overflow drops the same pseudo-random subset of uniques.
+
+    With a leading window axis (keys (Nw, N, 3), valid (Nw, N)) the window
+    is the most significant key (carried above the hash's 31 bits), the
+    unique ids restart at each window and every output gains the axis:
+    each window's rows are the ones it gets alone."""
+    lead = keys.shape[:-2]
+    nw = math.prod(lead)
+    N = nw * keys.shape[-2]
+    if lead:
+        keys, valid = keys.reshape(N, 3), valid.reshape(N)
     dev = keys.device
     imax = 2 ** 31 - 1
     big = torch.where(valid[:, None], keys.to(torch.int32),
                       torch.full_like(keys, imax, dtype=torch.int32))
     h = hash_key(big, 1 << 30).to(torch.int64)
     h = torch.where(valid, h, imax)
+    if lead:
+        h = h + (torch.arange(N, dtype=torch.int64, device=dev)
+                 // (N // nw) << 31)
     b = big.to(torch.int64) & _M32
     xy = ((b[:, 0] << 16) & _M32) | (b[:, 1] & 0xFFFF)
     zu = b[:, 2] ^ 0x80000000
@@ -154,19 +216,25 @@ def dedup_keys(keys: torch.Tensor, valid: torch.Tensor, unique_max: int):
     ])
     valid_sorted = valid[order]
     first = first & valid_sorted
-    uid_sorted = torch.cumsum(first.to(torch.int64), 0) - 1
+    # sorted position // (N / Nw) is the window: the ids restart there
+    uid_sorted = torch.cumsum(first.reshape(nw, -1).to(torch.int64),
+                              1).reshape(N) - 1
     overflow = uid_sorted >= unique_max
     uid_sorted = torch.where(valid_sorted & ~overflow, uid_sorted, -1)
 
     keep = first & ~overflow
-    tgt = torch.where(keep, uid_sorted, unique_max)
-    uniq_keys = torch.full((unique_max + 1, 3), EMPTY_KEY, dtype=torch.int32,
-                           device=dev)
+    tgt = flat_index(torch.where(keep, uid_sorted, -1).reshape(
+        lead + (-1,)), unique_max)
+    uniq_keys = torch.full((nw * unique_max + 1, 3), EMPTY_KEY,
+                           dtype=torch.int32, device=dev)
     uniq_keys[tgt] = sk
-    uniq_keys = uniq_keys[:unique_max]
-    n_uniq = torch.sum(keep.to(torch.int64))
+    uniq_keys = uniq_keys[:nw * unique_max].reshape(
+        lead + (unique_max, 3))
+    n_uniq = torch.sum(keep.reshape(nw, -1).to(torch.int64), 1)
+    n_uniq = n_uniq.reshape(lead + (1,)) if lead else n_uniq[0]
     uniq_valid = torch.arange(unique_max, device=dev) < n_uniq
 
     inverse = torch.empty((N,), dtype=torch.int64, device=dev)
     inverse[order] = uid_sorted
-    return uniq_keys, uniq_valid, inverse.to(torch.int32)
+    return uniq_keys, uniq_valid, inverse.to(torch.int32).reshape(
+        lead + (N // nw,))

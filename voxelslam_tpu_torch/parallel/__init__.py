@@ -1,5 +1,5 @@
-"""Window-level pieces of the global BA (port of the single-card part of
-`voxelslam_tpu/parallel/`)."""
-from . import dist_gba
+"""Window-level pieces of the global BA and their split over several cards
+(port of `voxelslam_tpu/parallel/`)."""
+from . import dist_gba, multihost
 
-__all__ = ["dist_gba"]
+__all__ = ["dist_gba", "multihost"]

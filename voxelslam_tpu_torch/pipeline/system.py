@@ -24,8 +24,11 @@ A divergence reset of the odometry opens a new loop session; earlier
 sessions stay searchable, so the new one can relocalize into them.
 
 `save_checkpoint`/`load_checkpoint` snapshot the live state mid-run
-(`utils/checkpoint.py`). Not ported yet: GBA windows sharded over several
-cards (ROADMAP.md Queue A item 7).
+(`utils/checkpoint.py`).
+
+With GBA on, a process started by `torchrun` as one of several ranks
+splits the bottom-up windows over them (`parallel.multihost`); a process
+started alone runs them one at a time on its card.
 """
 
 from __future__ import annotations
@@ -66,7 +69,13 @@ class SlamSystem:
         self.gba = None
         if enable_gba and enable_loop:
             from ..gba.hba import HbaRunner
-            self.gba = HbaRunner(cfg, device=self.device)
+            from ..parallel.multihost import ensure_distributed, \
+                global_win_mesh
+            # several ranks under torchrun: split the bottom-up windows
+            # over them; one process: None, one window at a time
+            ensure_distributed()
+            self.gba = HbaRunner(cfg, mesh=global_win_mesh(),
+                                 device=self.device)
         self._gba_consumed: dict[int, int] = {}
         self._emitted = 0
         self._session = 0

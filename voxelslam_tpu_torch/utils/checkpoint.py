@@ -13,8 +13,9 @@ Mechanics: each object's __dict__ is filtered (the device, the config and
 the constants derived from it are re-created by __init__) and pickled as
 it stands, in-flight work included: the odometry's deferred emission and
 scan queue, the refill state of `lba.mgsize > 1` and a GBA window
-dispatched ahead are saved, not drained, since draining would change what
-comes after. Every tensor is written as a host numpy copy, never as a CUDA
+dispatched ahead (or, with a mesh, the queued windows and the batch in
+flight) are saved, not drained, since draining would change what comes
+after. Every tensor is written as a host numpy copy, never as a CUDA
 tensor, and loaded onto the restoring system's device, so a checkpoint
 taken on the card loads on a host without one. Loading goes through an
 unpickler that admits only builtins, numpy, torch and this package's
@@ -34,12 +35,13 @@ FORMAT_VERSION = 1   # the port's own format, numbered apart from the JAX
                      # package's
 
 # attributes re-created by __init__ that must NOT be serialized: the
-# device and config, the constants derived from the config, and the
-# odometry's dispatch widths
+# device and config, the constants derived from the config, the
+# odometry's dispatch widths, and the GBA's mesh (it holds the process
+# group) and batch width, which come from the loading system's constructor
 _SKIP_KEYS = {
     "device", "cfg", "btc_cfg", "noise_meas", "noise_walk", "R_ext", "t_ext",
     "collect_clouds", "kf_point_max", "_capacity", "_unique_max",
-    "_ring_K", "_batch_K", "_stats_len",
+    "_ring_K", "_batch_K", "_stats_len", "mesh", "_fleet_batch",
 }
 # SlamSystem's own state
 _SYSTEM_KEYS = ("session_names", "_gba_consumed", "_emitted", "_session",
