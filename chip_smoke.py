@@ -79,10 +79,26 @@ Phases, each printing one JSON line:
                 window in flight, continued 10 scans; restored on the card
                 it continues bitwise equal, restored on the CPU within
                 5e-3; save and load seconds, the file's bytes;
-  11. timing  - the wall seconds of the phases (device, build, kernel and
+  11. remainders - the functions no entry point reaches, at the default
+                config's widths: the factor-major LiDAR factor on a window of
+                10 scene keyframes (hess_grad by autodiff and
+                hess_grad_analytic against hess_grad_ct_t, tests/test_ba.py's
+                tolerances, ms and peak memory each); a tracked and an
+                untracked map of those keyframes, marginalized 2 frames (the
+                sparse fold against the full fold) and evicted (the tsl
+                invariant); integrate_sequential and evaluate against
+                integrate and evaluate_closed at imu_max 64; solve_pose_graph
+                over odometry_chain_edges of 1,000 poses and 10 loop edges,
+                run to convergence, against the float64 solve;
+                voxel_downsample_close/pvec at 8,192 points; bench_btc.py's
+                ground and aerial scenarios through both BTC extractors
+                (tp/fp/fn/tn, each within 1 of BENCH_BTC_r05.json's; ms an
+                extract) and one structural descriptor against the CPU's;
+                no moments kernel runs here;
+  12. timing  - the wall seconds of the phases (device, build, kernel and
                 slice together as `to_system`);
-  12. kernels - one line listing every kernel with its numbers;
-  13. the last line: {"ok": true, "device": {...}}.
+  13. kernels - one line listing every kernel with its numbers;
+  14. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
 found, and nothing falls back to a kernel's plain version.
@@ -120,6 +136,17 @@ CLI_SCANS, CLI_AZ, CLI_EL = 150, 240, 32
 CKPT_TAIL = 10                  # scans each system continues past the save
 POSE_TOL = 5e-3                 # m and rotation entries, CPU against the card
                                 # (tests/test_torch_system.py)
+# phase remainders: a window of REM_W scene keyframes (GBA_P points each),
+# harvested at REM_FACTOR_MAX factors a level; a pose chain of REM_POSES
+REM_W, REM_FACTOR_MAX, REM_POSES = 10, 4096, 1000
+REM_PG_ITERS = 20               # the pose chain's Gauss-Newton to convergence
+# the JAX package's (tp, fp, fn, tn) on bench_btc.py's scenarios
+# (BENCH_BTC_r05.json); the port's are held within BTC_SLACK of each
+BTC_REF = {"ground_projection": (9, 1, 1, 5),
+           "ground_structural": (6, 0, 4, 6),
+           "aerial_projection": (10, 0, 0, 6),
+           "aerial_structural": (4, 0, 6, 6)}
+BTC_SLACK = 1
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -1518,6 +1545,574 @@ def checkpoint_phase(packets, cfg):
     return launches + launches2
 
 
+# --------------------------------------------------------------------------
+# phase remainders: the port's functions that no entry point reaches
+# --------------------------------------------------------------------------
+
+def _sync_ms(fn, reps=3):
+    """(result of the last call, median ms a call) of fn(), synchronised."""
+    import torch
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, sorted(times)[len(times) // 2]
+
+
+def _peak(fn):
+    """(result, median ms a call, peak device bytes) of fn()."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = _sync_ms(fn)
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def _rel_err(x, ref):
+    """max |x - ref| / max |ref|."""
+    import torch
+    return float(torch.max(torch.abs(x - ref))
+                 / torch.clamp(torch.max(torch.abs(ref)), min=1e-30))
+
+
+def _max_abs(a, b):
+    import torch
+    return float(torch.max(torch.abs(a.float() - b.float())))
+
+
+def _window_maps(kfs, truth, cfg):
+    """The keyframes inserted at their true poses into frame slots 0..W-1
+    of an empty map on the card (travel stamp = keyframe index), then
+    refreshed. Returns (levels, Rs, ps, mp)."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.map import voxel_map as vm
+    W = len(kfs)
+    Rs = torch.as_tensor(np.stack([R for R, _ in truth]), dtype=torch.float32,
+                         device="cuda")
+    ps = torch.as_tensor(np.stack([p for _, p in truth]), dtype=torch.float32,
+                         device="cuda")
+    levels = vm.empty_map(cfg, "cuda")
+    for i, kf in enumerate(kfs):
+        loc = torch.as_tensor(kf.cloud, device="cuda")
+        levels = vm.insert_scan(
+            levels, cfg, loc @ Rs[i].T + ps[i], loc,
+            torch.full((len(loc),), 1e-4, device="cuda"),
+            torch.as_tensor(kf.mask, device="cuda"), i, float(i))
+    mp = torch.arange(W, dtype=torch.int32, device="cuda")
+    return vm.refresh_planes(levels, cfg, Rs, ps, mp, W), Rs, ps, mp
+
+
+def factor_part(kfs, truth):
+    """The window's factors (`harvest`, factor_max REM_FACTOR_MAX a level)
+    at the keyframes' stored (perturbed) poses: hess_grad (autodiff),
+    and hess_grad_analytic against the production hess_grad_ct_t on the
+    transposed batch (hess_grad_ct is that call), within tests/test_ba.py's
+    tolerances (g 2e-4 and H 2e-3 of the largest entry); ms a call and
+    peak memory of each; transpose_factors(harvest) equals harvest_t."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.ba import lidar_factor as lf
+    from voxelslam_tpu_torch.config import MapConfig
+    from voxelslam_tpu_torch.map import voxel_map as vm
+    cfg = MapConfig()
+    levels, _, _, mp = _window_maps(kfs, truth, cfg)
+    fb = vm.harvest(levels, cfg, mp, REM_FACTOR_MAX)
+    ft = lf.transpose_factors(fb)
+    same_t = all(torch.equal(a, b) for a, b in zip(
+        ft, vm.harvest_t(levels, cfg, mp, REM_FACTOR_MAX)))
+    Rs = torch.as_tensor(np.stack([kf.R0 for kf in kfs]), dtype=torch.float32,
+                         device="cuda")
+    ps = torch.as_tensor(np.stack([kf.p0 for kf in kfs]), dtype=torch.float32,
+                         device="cuda")
+    m = torch.ones(len(kfs), device="cuda")
+    (H0, g0), ms, peak = _peak(lambda: lf.hess_grad_ct_t(ft, Rs, ps, m))
+    res = {"hess_grad_ct_t": dict(ms=ms, peak_bytes=peak)}
+    checks = {}
+    for name in ("hess_grad", "hess_grad_analytic"):
+        (H, g), ms, peak = _peak(lambda: getattr(lf, name)(fb, Rs, ps, m))
+        eH, eg = _rel_err(H, H0), _rel_err(g, g0)
+        res[name] = dict(ms=ms, peak_bytes=peak, H_rel_err=eH, g_rel_err=eg)
+        checks[f"{name}_matches_hess_grad_ct_t"] = (
+            eH <= 2e-3 and eg <= 2e-4 and bool(torch.all(torch.isfinite(H))))
+    checks["harvest_transposes_to_harvest_t"] = same_t
+    checks["factors_harvested"] = int(fb.valid.sum()) > 0
+    return dict(window=len(kfs), factor_rows=int(fb.valid.numel()),
+                factors=int(fb.valid.sum()), newton_systems=res), checks
+
+
+def tracking_part(kfs, truth):
+    """The keyframes into a tracked and an untracked map at the default
+    capacities and unique_max; marginalize 2 frames (the sparse fold
+    against the full fold, tests/test_voxel_map.py:447-473's tolerances),
+    then evict the voxels made before the middle keyframe: the remapped
+    tsl keeps its invariant (window stats only at listed slots), and both
+    maps keep the same keys."""
+    import torch
+    from voxelslam_tpu_torch.config import MapConfig
+    from voxelslam_tpu_torch.map import voxel_map as vm
+    W = len(kfs)
+    out, maps = {}, {}
+    for track in (True, False):
+        cfg = MapConfig(track_touched=track)
+        levels, Rs, ps, mp = _window_maps(kfs, truth, cfg)
+        marg, ms = _sync_ms(lambda: vm.marginalize(levels, cfg, Rs, ps, mp,
+                                                   W, 2))
+        (ev, _), ev_ms = _sync_ms(lambda: vm.evict(marg, W - 1.0,
+                                                   W / 2 - 0.5))
+        maps[track] = (marg, ev)
+        out["sparse_fold" if track else "full_fold"] = dict(
+            marginalize_ms=ms, evict_ms=ev_ms,
+            tsl_width=[int(lv.tsl.shape[1]) for lv in levels],
+            occupied_after_evict=[int(lv.occ.sum()) for lv in ev])
+    diff = {}
+    for a, b in zip(maps[True][0], maps[False][0]):
+        for k, x, y in (("n", a.fix.n, b.fix.n), ("mu", a.fix.mu, b.fix.mu),
+                        ("S", a.fix.S, b.fix.S), ("nv", a.fix_nv, b.fix_nv)):
+            diff[k] = max(diff.get(k, 0.0), _max_abs(x, y))
+    invariant, listed, same_keys = True, 0, True
+    for a, b in zip(*(maps[t][1] for t in (True, False))):
+        C = a.keys.shape[0]
+        mark = torch.zeros((a.tsl.shape[0], C + 1), dtype=torch.bool,
+                           device="cuda")
+        mark.scatter_(1, a.tsl.long(), True)
+        invariant &= not bool(torch.any((a.win.n > 0) & ~mark[:, :C]))
+        listed += int(torch.sum(a.tsl < C))
+        same_keys &= torch.equal(a.keys, b.keys)
+    out["fix_max_abs_diff"] = diff
+    out["tsl_slots_listed_after_evict"] = listed
+    return out, dict(
+        sparse_fold_matches_full=(diff["n"] <= 1e-5 and diff["mu"] <= 1e-4
+                                  and diff["S"] <= 3e-3 and diff["nv"] <= 1e-4),
+        tsl_invariant_after_evict=invariant, tsl_slots_left=listed > 0,
+        evict_same_keys_both_maps=same_keys)
+
+
+def _random_states(rng, W):
+    """(W,) random NavState fields (tests/test_torch_helpers.py)."""
+    import numpy as np
+    from voxelslam_tpu_torch.io import simulator as sim
+    A = rng.normal(0, 1e-2, (W, 15, 15))
+    return dict(
+        R=np.stack([sim._exp(w) for w in rng.normal(0, 0.5, (W, 3))]),
+        p=rng.normal(0, 2, (W, 3)), v=rng.normal(0, 1, (W, 3)),
+        bg=rng.normal(0, 1e-3, (W, 3)), ba=rng.normal(0, 1e-2, (W, 3)),
+        g=np.tile([0.0, 0.0, -9.81], (W, 1)), t=np.arange(W) * 0.1,
+        cov=A @ A.transpose(0, 2, 1) + np.eye(15) * 1e-4)
+
+
+def imu_part(imu_max):
+    """integrate_sequential against integrate over imu_max samples (the
+    last 5 padding), every field within tests/test_imu.py's 1e-5 of
+    max(1, |x|); evaluate (jacfwd) against evaluate_closed, within 2e-4
+    of each output's largest entry (tests/test_torch_imu.py)."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.core.state import NavState
+    from voxelslam_tpu_torch.imu import preintegration as pre
+    rng = np.random.default_rng(2)
+    N = imu_max
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+    args = [dev(x) for x in (
+        rng.normal(0, 0.4, (N, 3)),
+        rng.normal(0, 1.0, (N, 3)) + np.array([0, 0, 9.8]),
+        np.full(N, 0.005) + rng.random(N) * 0.002,
+        np.concatenate([np.ones(N - 5), np.zeros(5)]),
+        [0.01, -0.02, 0.005], [0.1, -0.05, 0.02],
+        np.eye(6) * 0.01, np.eye(6) * 1e-4)]
+    seq, seq_ms = _sync_ms(lambda: pre.integrate_sequential(*args))
+    log, log_ms = _sync_ms(lambda: pre.integrate(*args))
+    seq_err = max(_max_abs(getattr(log, f), getattr(seq, f))
+                  / max(1.0, float(torch.max(torch.abs(getattr(seq, f)))))
+                  for f in pre._FIELDS)
+    d = _random_states(rng, 2)
+    st = NavState(**{k: dev(v) for k, v in d.items()})
+    W = pre.cov_inv(log)
+    res, checks = dict(imu_max=N, integrate_sequential_ms=seq_ms,
+                       integrate_ms=log_ms, sequential_rel_err=seq_err), {}
+    for grav in (False, True):
+        auto, ms = _sync_ms(lambda: pre.evaluate(log, st[0], st[1], grav, W))
+        closed, ms_c = _sync_ms(lambda: pre.evaluate_closed(
+            log, st[0], st[1], grav, W))
+        err = max(_rel_err(a, c) for a, c in zip(auto, closed))
+        res[f"evaluate{'_g' if grav else ''}"] = dict(
+            ms=ms, closed_ms=ms_c, rel_err=err)
+        checks[f"evaluate{'_gravity' if grav else ''}_matches_closed"] = \
+            err <= 2e-4
+    checks["integrate_sequential_matches_integrate"] = seq_err <= 1e-5
+    return res, checks
+
+
+def posegraph_part(K):
+    """A circle of K poses whose odometry carries a yaw bias (tests/
+    test_loop.py's scenario, the bias scaled to the same total drift),
+    odometry_chain_edges plus 10 loop edges with true relative poses.
+    solve_pose_graph run to convergence (REM_PG_ITERS iterations) holds
+    the float64 solve's poses within POSE_TOL; the default 5 iterations
+    cut the end drift below a fifth, and their distance to the float64
+    solve's 5 iterations is reported, not held: the scaled system's
+    smallest eigenvalue (about 1e-6) meets the damping there, so the
+    unconverged iterate follows the f32 solve's rounding by centimetres
+    (tools/posegraph_precision.py; the card's float64 solve is the host's
+    within 2e-11 m). ms a solve, and of solve_pose_graph_full with the
+    diagonal as W6, which parts from the first call by the card's
+    unordered block sums (`index_add_`) alone."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.io import simulator as sim
+    from voxelslam_tpu_torch.loop import posegraph as pg
+    th = np.linspace(0, 2 * np.pi, K)
+    gt_p = np.stack([5 * np.sin(th), 5 * (1 - np.cos(th)), np.zeros(K)], -1)
+    gt_R = np.stack([sim._exp(np.array([0, 0, a])) for a in th])
+    bias = sim._exp(np.array([0, 0, 0.24 / K]))
+    est_R, est_p = [gt_R[0]], [gt_p[0]]
+    for i in range(1, K):
+        est_p.append(est_p[-1] + est_R[-1] @ (gt_R[i - 1].T
+                                              @ (gt_p[i] - gt_p[i - 1])))
+        est_R.append(est_R[-1] @ gt_R[i - 1].T @ gt_R[i] @ bias)
+    a = np.arange(10) * (K // 20)
+    b = K - 1 - a
+    lR = np.einsum("nji,njk->nik", gt_R[a], gt_R[b])
+    lp = np.einsum("nji,nj->ni", gt_R[a], gt_p[b] - gt_p[a])
+
+    def graph(device, dt):
+        def dev(x, t=dt):
+            return torch.as_tensor(np.asarray(x), dtype=t, device=device)
+        R0, p0 = dev(np.stack(est_R)), dev(np.stack(est_p))
+        ii, jj, rR, rp, info = pg.odometry_chain_edges(
+            R0, p0, dev(np.full((K, 6), 1e-4)))
+        return (R0, p0, torch.cat([ii, dev(a, torch.int32)]),
+                torch.cat([jj, dev(b, torch.int32)]),
+                torch.cat([rR, dev(lR)]), torch.cat([rp, dev(lp)]),
+                torch.cat([info, dev(np.full((10, 6), 1e6))]))
+
+    g = graph("cuda", torch.float32)
+    (R1, p1, chi), ms = _sync_ms(lambda: pg.solve_pose_graph(*g))
+    (R2, p2, _), ms_full = _sync_ms(lambda: pg.solve_pose_graph_full(
+        *g[:6], torch.diag_embed(g[6])))
+    g64 = graph("cuda", torch.float64)
+    R64, p64, _ = pg.solve_pose_graph(*g64)
+    Rc, pc, _ = pg.solve_pose_graph(*g, iters=REM_PG_ITERS)
+    Rc64, pc64, _ = pg.solve_pose_graph(*g64, iters=REM_PG_ITERS)
+    e_p, e_R = _max_abs(pc, pc64), _max_abs(Rc, Rc64)
+    drift0 = float(np.linalg.norm(est_p[-1] - gt_p[-1]))
+    p1n = p1.cpu().numpy()
+    drift1 = float(np.linalg.norm(p1n[-1] - p1n[0] - (gt_p[-1] - gt_p[0])))
+    return dict(poses=K, edges=int(g[2].numel()), ms_per_solve=ms,
+                full_ms_per_solve=ms_full, drift_before_m=drift0,
+                drift_after_m=drift1, chi2=float(chi),
+                converged_vs_float64_max_abs=dict(iters=REM_PG_ITERS, p=e_p,
+                                                  R=e_R),
+                iters5_vs_float64_max_abs=dict(p=_max_abs(p1, p64),
+                                               R=_max_abs(R1, R64)),
+                diagonal_vs_full_max_abs=dict(p=_max_abs(p1, p2),
+                                              R=_max_abs(R1, R2))), dict(
+        converged_solve_matches_float64=e_p <= POSE_TOL and e_R <= POSE_TOL,
+        drift_cut_below_fifth=drift0 > 0.5 and drift1 < 0.2 * drift0,
+        poses_finite=bool(torch.all(torch.isfinite(p1))))
+
+
+def downsample_part(kf, point_max, size):
+    """voxel_downsample_close and voxel_downsample_pvec of one keyframe
+    cloud at point_max rows: every kept row is a real input point, the
+    member closest to its voxel's centroid (numpy, f64), with the CPU's
+    mask; pvec within 1e-5 (means) and 1e-4 (covariances,
+    tests/test_downsample.py) of the CPU's; ms a call."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.ops import downsample as ds
+    pts = torch.as_tensor(kf.cloud, device="cuda")
+    mask = torch.as_tensor(kf.mask, device="cuda")
+    rng = np.random.default_rng(0)
+    var = rng.uniform(0.5, 1.5, (len(kf.cloud), 3, 3)).astype(np.float32)
+    var = torch.as_tensor(var + var.transpose(0, 2, 1), device="cuda")
+    (out, valid, src), ms_c = _sync_ms(lambda: ds.voxel_downsample_close(
+        pts, mask, size, point_max))
+    (mu, cov, pvalid), ms_p = _sync_ms(lambda: ds.voxel_downsample_pvec(
+        pts, var, mask, size, point_max))
+    cpu = ds.voxel_downsample_close(pts.cpu(), mask.cpu(), size, point_max)
+    cpu_p = ds.voxel_downsample_pvec(pts.cpu(), var.cpu(), mask.cpu(), size,
+                                     point_max)
+    P = kf.cloud.astype(np.float64)
+    live = kf.mask > 0
+    _, grp = np.unique(np.floor(P / size).astype(np.int64), axis=0,
+                       return_inverse=True)
+    grp = grp.reshape(-1)
+    cnt = np.bincount(grp[live], minlength=grp.max() + 1)
+    cen = np.stack([np.bincount(grp[live], P[live, k], grp.max() + 1)
+                    for k in range(3)], 1) / np.maximum(cnt, 1)[:, None]
+    d2 = np.sum((P - cen[grp]) ** 2, 1)
+    best = np.full(grp.max() + 1, np.inf)
+    np.minimum.at(best, grp[live], d2[live])
+    v, s = valid.cpu().numpy(), src.cpu().numpy()
+    kept = s[v]
+    return dict(points=int(live.sum()), kept=int(v.sum()),
+                close_ms=ms_c, pvec_ms=ms_p), dict(
+        close_rows_are_input_points=bool(np.array_equal(
+            out.cpu().numpy()[v], kf.cloud[kept])),
+        close_rows_closest_to_centroid=bool(np.all(
+            d2[kept] <= best[grp[kept]] + 1e-6)),
+        close_one_row_per_voxel=len(np.unique(grp[kept])) == len(kept)
+        == int(np.sum(cnt > 0)),
+        close_mask_equals_cpu=torch.equal(valid.cpu(), cpu[1]),
+        pvec_matches_cpu=torch.equal(pvalid.cpu(), cpu_p[2])
+        and _max_abs(mu.cpu(), cpu_p[0]) <= 1e-5
+        and _max_abs(cov.cpu(), cpu_p[1]) <= 1e-4)
+
+
+def btc_place(seed, aerial):
+    """bench_btc.py's make_place (clutter off), copied: a random room shell
+    (open-topped for the aerial profile) with 5-10 box pillars. Returns
+    (scene, center, half extents)."""
+    import numpy as np
+    from voxelslam_tpu_torch.io import simulator as sim
+    rng = np.random.default_rng(seed)
+    scale = 2.0 if aerial else 1.0
+    half = (rng.uniform(10, 16) * scale, rng.uniform(8, 14) * scale,
+            rng.uniform(3, 4.5) * scale)
+    center = (rng.uniform(-2, 6), rng.uniform(-3, 3), half[2] / 2)
+    normals, ds = sim.box_room(half, center)
+    if aerial:
+        normals, ds = normals[:5], ds[:5]
+    scene = sim.Scene.from_planes(normals, ds)
+    for _ in range(rng.integers(5, 11)):
+        px = center[0] + rng.uniform(-half[0] + 3, half[0] - 3)
+        py = center[1] + rng.uniform(-half[1] + 3, half[1] - 3)
+        if abs(px - center[0]) < 4 and abs(py - center[1]) < 4:
+            continue
+        sx, sy = rng.uniform(0.8, 3.0, 2) * scale
+        sz = rng.uniform(1.5, 2 * half[2] - 0.5)
+        scene = scene + sim.box_scene((px, py, sz / 2), (sx, sy, sz))
+    return scene, center, half
+
+
+def btc_specs(aerial, n_places=10, n_novel=6, seed0=100):
+    """bench_btc.py's run_profile scenario, its seeds and draws: one
+    keyframe per place for the DB, a revisit of each (offset up to 2.5 m,
+    yaw up to 180 deg) and n_novel keyframes of unseen places. Returns
+    (DB specs, [(expected place or None, spec)]), a spec being
+    (place seed, origin, yaw, keyframe seed)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+
+    def origin_of(seed):
+        _, center, half = btc_place(seed, aerial)
+        return np.array([center[0], center[1],
+                         2.0 * half[2] + 12.0 if aerial else 1.2])
+    db = [(seed0 + i, origin_of(seed0 + i), rng.uniform(0, 2 * np.pi),
+           1000 + i) for i in range(n_places)]
+    queries = []
+    for i, (seed, origin, _, _) in enumerate(db):
+        off = rng.uniform(-1, 1, 3) * [2.5, 2.5, 0.3]
+        queries.append((i, (seed, origin + off, rng.uniform(0, np.pi),
+                            2000 + i)))
+    for i in range(n_novel):
+        seed = seed0 + 500 + i
+        queries.append((None, (seed, origin_of(seed),
+                               rng.uniform(0, 2 * np.pi), 3000 + i)))
+    return db, queries
+
+
+def _btc_body(place_seed, origin, yaw, seed, aerial):
+    """bench_btc.py's keyframe_cloud up to its downsample (host work, run in
+    a worker process): 10 scans (6 aerial) of the place around (origin,
+    yaw), merged in the body frame. Returns (N, 3) float32."""
+    import numpy as np
+    from voxelslam_tpu_torch.io import simulator as sim
+    scene, _, _ = btc_place(place_seed, aerial)
+    rng = np.random.default_rng(seed)
+    R0 = sim._exp(np.array([0.0, 0.0, yaw]))
+    n_az, n_el = (224, 40) if aerial else (180, 24)
+    fov = (-1.35, -0.25) if aerial else (-0.4, 0.3)
+    pts = []
+    for _ in range(6 if aerial else 10):
+        p = np.asarray(origin) + rng.normal(0, 0.3, 3) * [1, 1, 0.1]
+        dirs, _ = sim.scan_directions(n_az, n_el, fov_el=fov)
+        pc, hit = sim.raycast(p, R0, dirs, scene, max_range=120.0)
+        w = pc[hit] @ R0.T + p
+        pts.append(w + rng.normal(0, 0.015, w.shape))
+    return ((np.concatenate(pts) - np.asarray(origin)) @ R0).astype(
+        np.float32)
+
+
+def btc_cloud(body, aerial, P=8192):
+    """bench_btc.py's keyframe downsample (0.2 m, 0.4 m aerial, to P rows),
+    the port's voxel_downsample on the card. Returns (cloud, mask)."""
+    import torch
+    from voxelslam_tpu_torch.ops.downsample import voxel_downsample
+    body = torch.as_tensor(body, device="cuda")
+    down, dmask, _ = voxel_downsample(
+        body, torch.ones(len(body), device="cuda"),
+        0.4 if aerial else 0.2, P)
+    return down, dmask.to(torch.float32)
+
+
+def _one_thread():
+    """Worker initializer: one BLAS/OpenMP thread a process."""
+    for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[k] = "1"
+
+
+def _btc_query(aerial, extractor, db_descs, desc):
+    """bench_btc.py's accept path for one query (host work, run in a
+    worker process): the DB of db_descs, DescriptorDB.search, then verify
+    down the preset's candidate_num candidates until one's overlap clears
+    jud_default. Returns the matched DB index or None."""
+    from voxelslam_tpu_torch.config import preset
+    from voxelslam_tpu_torch.loop.btc import BtcConfig, DescriptorDB
+    cfg = preset("avia_fly" if aerial else "avia")
+    db = DescriptorDB(BtcConfig.profile(aerial, extractor=extractor))
+    for i, d in enumerate(db_descs):
+        db.add(i, d)
+    for frame, _, matches in db.search(desc, skip_near=-1,
+                                       current_frame=1 << 30)[
+            :cfg.loop.candidate_num]:
+        ver = db.verify(desc, frame, matches)
+        if ver is not None and ver["overlap"] >= cfg.loop.jud_default:
+            return frame
+    return None
+
+
+def btc_submit(pool, aerial, extractor, db_clouds, queries):
+    """Extract every DB and query keyframe on the card (ms an extract,
+    synchronised) and submit each query's search and verify to the host
+    pool. Returns (futures, expected places, extract ms)."""
+    import torch
+    from voxelslam_tpu_torch.loop.btc import BtcConfig, extract
+    bcfg = BtcConfig.profile(aerial, extractor=extractor)
+    ext_ms = []
+
+    def desc_of(cloud, mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = {k: v.cpu().numpy() for k, v in extract(cloud, mask,
+                                                     bcfg).items()}
+        ext_ms.append(1e3 * (time.perf_counter() - t0))
+        return d
+
+    db = [desc_of(c, m) for c, m in db_clouds]
+    futs = [pool.submit(_btc_query, aerial, extractor, db, desc_of(c, m))
+            for _, (c, m) in queries]
+    return futs, [want for want, _ in queries], ext_ms
+
+
+def btc_score(futs, wants, ext_ms):
+    """bench_btc.py's counts (a revisit matched to its own place is tp,
+    to another fp, to none fn; a novel place matched is fp, else tn),
+    precision, recall and the median ms an extract."""
+    n = dict(tp=0, fp=0, fn=0, tn=0)
+    for fut, want in zip(futs, wants):
+        got = fut.result()
+        n[("tp" if got == want else "fn" if got is None else "fp")
+          if want is not None else ("tn" if got is None else "fp")] += 1
+    revisits = sum(w is not None for w in wants)
+    return dict(**n, queries=len(wants),
+                precision=n["tp"] / max(n["tp"] + n["fp"], 1),
+                recall=n["tp"] / max(revisits, 1),
+                ms_per_extract=sorted(ext_ms)[len(ext_ms) // 2])
+
+
+def structural_card_vs_cpu(cloud, mask):
+    """One keyframe's structural descriptor on the card against the same
+    call on the CPU: the same plane, corner and triangle masks, corners
+    within 1e-4 m."""
+    import torch
+    from voxelslam_tpu_torch.loop import btc
+    cfg = btc.BtcConfig.profile(False, extractor="structural")
+    out = []
+    for dev in ("cuda", "cpu"):
+        c, m = cloud.to(dev), mask.to(dev)
+        planes = btc._extract_planes(c, m, cfg)
+        corners = btc._structural_corners(c, m, *planes[:3], cfg)
+        out.append(([x.cpu() for x in planes[:3]], [x.cpu() for x in corners],
+                    {k: v.cpu() for k, v in btc.extract(c, m, cfg).items()}))
+    (pa, ca, da), (pb, cb, db) = out
+    err = _max_abs(ca[0][ca[3]], cb[0][cb[3]]) if torch.equal(
+        ca[3], cb[3]) else float("inf")
+    return dict(corners=int(ca[3].sum()), corner_max_abs_diff_m=err,
+                triangles=int(da["tri_valid"].sum())), dict(
+        structural_same_planes_on_cpu=torch.equal(pa[2], pb[2]),
+        structural_same_corner_mask_on_cpu=torch.equal(ca[3], cb[3]),
+        structural_corners_within_1e4_of_cpu=err <= 1e-4,
+        structural_same_triangle_mask_on_cpu=torch.equal(
+            da["tri_valid"], db["tri_valid"]))
+
+
+def remainders_phase(smi_line):
+    """Phase remainders: the JAX package's functions without an entry point
+    of their own, on the card at the default config's widths (see the
+    parts' docstrings). Fails the run on any check."""
+    import torch
+    out, checks = {"nvidia_smi": smi_line}, {}
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res, ok = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        out[name] = res
+        checks.update(ok)
+
+    kfs, truth = scene_keyframes(REM_W, GBA_P)
+    part("factor", factor_part, kfs, truth)
+    part("tracking", tracking_part, kfs, truth)
+    part("imu", imu_part, 64)
+    part("posegraph", posegraph_part, REM_POSES)
+    part("downsample", downsample_part, kfs[0], 8192, 0.5)
+    # BTC: the scenes' raycasts and each query's search and verify (host
+    # numpy, seconds a query) in a pool of host processes; downsampling
+    # and extraction on the card
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from voxelslam_tpu_torch import native
+    native.library("btcdb")
+    t0 = time.perf_counter()
+    btc, pending = {}, {}
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             multiprocessing.get_context("spawn"),
+                             initializer=_one_thread) as pool:
+        bodies = {}
+        for aerial in (False, True):
+            db, queries = btc_specs(aerial)
+            bodies[aerial] = (
+                [pool.submit(_btc_body, *s, aerial) for s in db],
+                [(want, pool.submit(_btc_body, *s, aerial))
+                 for want, s in queries])
+        for aerial in (False, True):
+            db_f, q_f = bodies[aerial]
+            db = [btc_cloud(f.result(), aerial) for f in db_f]
+            queries = [(want, btc_cloud(f.result(), aerial))
+                       for want, f in q_f]
+            for ex in ("projection", "structural"):
+                pending[f"{'aerial' if aerial else 'ground'}_{ex}"] = \
+                    btc_submit(pool, aerial, ex, db, queries)
+            if not aerial:
+                res, ok = structural_card_vs_cpu(*db[0])
+                btc["structural_card_vs_cpu"] = res
+                checks.update(ok)
+        for name, sub in pending.items():
+            btc[name] = btc_score(*sub)
+    seconds["btc"] = time.perf_counter() - t0
+    out["btc"] = btc
+    checks["btc_every_query_scored"] = all(
+        sum(btc[k][c] for c in ("tp", "fp", "fn", "tn")) == btc[k]["queries"]
+        for k in pending)
+    checks["btc_counts_match_jax_package"] = all(
+        abs(btc[k][c] - want) <= BTC_SLACK
+        for k, ref in BTC_REF.items()
+        for c, want in zip(("tp", "fp", "fn", "tn"), ref))
+    emit("remainders", **out, part_seconds=seconds, checks=checks)
+    if not all(checks.values()):
+        fail(f"remainders checks failed: "
+             f"{[k for k, v in checks.items() if not v]}")
+    torch.cuda.empty_cache()
+
+
 def main():
     import numpy as np
     import torch
@@ -1626,6 +2221,9 @@ def main():
     t0 = time.perf_counter()
     launches["checkpoint"] = checkpoint_phase(cli_packets, cli_cfg)
     seconds["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remainders_phase(smi_line)
+    seconds["remainders"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_start
     emit("timing", seconds=seconds)
 

@@ -323,13 +323,12 @@ def test_extract_planes_and_corners_match_jax(visits):
 
 def test_profiles_match_jax():
     for fly in (False, True):
-        dj = dataclasses.asdict(jbtc.BtcConfig.profile(fly))
-        dt = dataclasses.asdict(tbtc.BtcConfig.profile(fly))
-        assert dt == dj
-        assert tbtc.BtcConfig.profile(fly).code_bits == \
-            jbtc.BtcConfig.profile(fly).code_bits
-    with pytest.raises(NotImplementedError):
-        tbtc.BtcConfig.profile(False, extractor="structural")
+        for ex in ("projection", "structural"):
+            dj = dataclasses.asdict(jbtc.BtcConfig.profile(fly, extractor=ex))
+            dt = dataclasses.asdict(tbtc.BtcConfig.profile(fly, extractor=ex))
+            assert dt == dj and dt["extractor"] == ex
+            assert tbtc.BtcConfig.profile(fly, extractor=ex).code_bits == \
+                jbtc.BtcConfig.profile(fly, extractor=ex).code_bits
 
 
 # --------------------------------------------------------------------------

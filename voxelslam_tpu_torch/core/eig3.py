@@ -5,14 +5,30 @@ The analytic trigonometric method (no iteration) with the JAX package's
 exact eigenvector construction, degenerate-case fallbacks and final
 stable argsort, so eigenvalue order and eigenvector signs match it —
 `torch.linalg.eigh` would choose other signs. Eigenvalues ascend
-(Eigen's SelfAdjointEigenSolver convention used by the reference). The
-JAX package's custom JVP has no counterpart: nothing here is
-differentiated.
+(Eigen's SelfAdjointEigenSolver convention used by the reference).
+
+`eigh3` is a `torch.autograd.Function` whose derivative is the JAX
+package's custom JVP, the first-order perturbation formulas
+
+    d lambda_k = u_k^T dA u_k
+    d u_k      = sum_{j != k} (u_j^T dA u_k) / (lambda_k - lambda_j) u_j
+
+with gaps under `_GAP_EPS` dropped, in both modes: `jvp` is the formula
+and `backward` its adjoint, written in differentiable ops on the saved
+(w, V), so `torch.func.jacfwd(torch.func.grad(f))` differentiates it
+again. Autograd never sees the eigenvector construction itself, whose
+derivative near repeated eigenvalues is another one.
+
+`eigh3_forward` is the same construction without the Function: the
+callers that take no derivative (the LM loops' `_eig_t`, the map's plane
+refresh, knn normals, BTC) call it and build no autograd node.
 """
 
 from __future__ import annotations
 
 import torch
+
+_GAP_EPS = 1e-9
 
 
 def eigvalsh3(A: torch.Tensor) -> torch.Tensor:
@@ -74,9 +90,10 @@ def _orthogonalize(v: torch.Tensor, anchor: torch.Tensor) -> torch.Tensor:
                        _ortho(anchor))
 
 
-def eigh3(A: torch.Tensor):
-    """Eigen-decomposition of symmetric (..., 3, 3): returns (w, V) with w
-    ascending and V[..., :, k] the unit eigenvector of w[..., k]."""
+def eigh3_forward(A: torch.Tensor):
+    """`eigh3`'s values, bit for bit, outside autograd's view: for callers
+    that take no derivative (differentiating it gives the construction's
+    derivative, not the perturbation formulas)."""
     A = (A + A.transpose(-1, -2)) * 0.5
     w = eigvalsh3(A)
     scale = torch.clamp(torch.amax(torch.abs(w), dim=-1), min=1e-30)
@@ -109,3 +126,49 @@ def eigh3(A: torch.Tensor):
     w_r = torch.gather(w_r, -1, order)
     V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
     return w_r, V
+
+
+def _sym(X: torch.Tensor) -> torch.Tensor:
+    return (X + X.transpose(-1, -2)) * 0.5
+
+
+def _inv_gaps(w: torch.Tensor) -> torch.Tensor:
+    """G[..., j, k] = 1 / (w_k - w_j) where |w_k - w_j| > _GAP_EPS, else 0
+    (so 0 on the diagonal)."""
+    gaps = w[..., None, :] - w[..., :, None]
+    big = torch.abs(gaps) > _GAP_EPS
+    return torch.where(big, 1.0 / torch.where(big, gaps, 1.0), 0.0)
+
+
+class Eigh3(torch.autograd.Function):
+    """(w, V) = eigh3(A) with the first-order perturbation derivative."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(A):
+        return eigh3_forward(A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w, V = output
+        ctx.save_for_backward(w, V)
+        ctx.save_for_forward(w, V)
+
+    @staticmethod
+    def jvp(ctx, dA):
+        w, V = ctx.saved_tensors
+        S = V.transpose(-1, -2) @ _sym(dA) @ V
+        return torch.diagonal(S, dim1=-2, dim2=-1), V @ (S * _inv_gaps(w))
+
+    @staticmethod
+    def backward(ctx, gw, gV):
+        w, V = ctx.saved_tensors
+        M = torch.diag_embed(gw) + (V.transpose(-1, -2) @ gV) * _inv_gaps(w)
+        return _sym(V @ M @ V.transpose(-1, -2))
+
+
+def eigh3(A: torch.Tensor):
+    """Eigen-decomposition of symmetric (..., 3, 3): returns (w, V) with w
+    ascending and V[..., :, k] the unit eigenvector of w[..., k]."""
+    return Eigh3.apply(A)

@@ -4,10 +4,12 @@ preintegration.hpp:11-331).
 
 `integrate` builds one atomic Preint per sample (batched) and composes
 them with `merge` through the same associative-scan recursion as the JAX
-package. The factor pieces (`residual`, `jacobian_closed`,
+package; `integrate_sequential` is the sample-by-sample recursion it is
+held to. The factor pieces (`residual`, `jacobian_closed`,
 `evaluate_closed`, `cov_inv`, `chi2`) take Preints and NavStates with
 any common leading batch dims — the JAX package's `vmap`s over window
-pairs become that batch dim.
+pairs become that batch dim. `evaluate` is the autodiff oracle of
+`evaluate_closed`: `torch.func.jacfwd` of the boxplus-perturbed residual.
 """
 
 from __future__ import annotations
@@ -55,6 +57,52 @@ class Preint:
                       cov=torch.zeros((DIM, DIM), **kw),
                       bg_lin=z3 if bg is None else bg,
                       ba_lin=z3 if ba is None else ba)
+
+
+def integrate_sequential(gyr, acc, dt, mask, bg, ba, noise_meas, noise_walk,
+                         scale_gravity: float = 1.0) -> Preint:
+    """Preintegrate N midpoint samples one after the other (IMU_PRE::add_imu,
+    preintegration.hpp:75-135): the ground truth `integrate` is held to.
+    gyr/acc (N, 3), dt (N,), mask (N,) (padding-safe)."""
+    c = Preint.identity(bg, ba, dtype=gyr.dtype, device=gyr.device)
+    I3 = torch.eye(3, dtype=gyr.dtype, device=gyr.device)
+    m = mask.to(gyr.dtype)
+    for g_i, a_i, dt_i, m_i in zip(gyr, acc, dt, m):
+        w = (g_i - bg) * m_i
+        a = (a_i * scale_gravity - ba) * m_i
+        dt_i = dt_i * m_i
+        R_inc = so3.exp(w * dt_i)
+        R_jr = so3.jr(w * dt_i)
+        R_dt = dt_i * c.R_delta
+        R_dt2_2 = 0.5 * dt_i * dt_i * c.R_delta
+        a_hat = so3.hat(a)
+
+        # 9x9 error-state transition on (dR, dp, dv); additive bias walk
+        A = torch.eye(9, dtype=gyr.dtype, device=gyr.device)
+        A[0:3, 0:3] = R_inc.T
+        A[3:6, 0:3] = -R_dt2_2 @ a_hat
+        A[3:6, 6:9] = I3 * dt_i
+        A[6:9, 0:3] = -R_dt @ a_hat
+        B = gyr.new_zeros((9, 6))
+        B[0:3, 0:3] = R_jr * dt_i
+        B[3:6, 3:6] = R_dt2_2
+        B[6:9, 3:6] = R_dt
+        cov = c.cov.clone()
+        cov[0:9, 0:9] = A @ c.cov[0:9, 0:9] @ A.T + B @ noise_meas @ B.T
+        cov[9:15, 9:15] += noise_walk * dt_i
+
+        c = Preint(
+            R_delta=c.R_delta @ R_inc,
+            p_delta=c.p_delta + c.v_delta * dt_i + R_dt2_2 @ a,
+            v_delta=c.v_delta + R_dt @ a,
+            R_bg=R_inc.T @ c.R_bg - R_jr * dt_i,
+            p_bg=c.p_bg + c.v_bg * dt_i - R_dt2_2 @ a_hat @ c.R_bg,
+            p_ba=c.p_ba + c.v_ba * dt_i - R_dt2_2,
+            v_bg=c.v_bg - R_dt @ a_hat @ c.R_bg,
+            v_ba=c.v_ba - R_dt,
+            dtime=c.dtime + dt_i, cov=cov,
+            bg_lin=c.bg_lin, ba_lin=c.ba_lin)
+    return c
 
 
 def _eye3(like: torch.Tensor, batch=()) -> torch.Tensor:
@@ -157,6 +205,34 @@ def residual(pre: Preint, st1: NavState, st2: NavState) -> torch.Tensor:
                - 0.5 * dtime * dtime * st1.g)
     return torch.cat([res_r, exp_t - t_corr, exp_v - v_corr,
                       st2.bg - st1.bg, st2.ba - st1.ba], dim=-1)
+
+
+def _perturbed_residual(dx1, dx2, dg, pre, st1, st2):
+    st1p = dataclasses.replace(st1.boxplus(dx1), g=st1.g + dg)
+    return residual(pre, st1p, st2.boxplus(dx2))
+
+
+def evaluate(pre: Preint, st1: NavState, st2: NavState,
+             with_gravity: bool = False, Winv=None):
+    """(chi2, J^T W J, J^T W r) of one IMU factor with the Jacobian by
+    `torch.func.jacfwd` of the boxplus-perturbed residual, state layout
+    [dx1 (15), dx2 (15)] (+ [dg (3)]; reference give_evaluate_g,
+    preintegration.hpp:214-294). The factor goes through as a batch of
+    one: under jacfwd an unbatched 0-dim norm plus a Python float gets
+    float64 tangents (torch 2.13)."""
+    def one(x):
+        return tmap(lambda a: a[None], x)
+
+    z15 = pre.p_delta.new_zeros((1, DIM))
+    z3 = pre.p_delta.new_zeros((1, 3))
+    r = residual(pre, st1, st2)
+    J1, J2, Jg = (j[0, :, 0] for j in torch.func.jacfwd(
+        _perturbed_residual, argnums=(0, 1, 2))(
+            z15, z15, z3, one(pre), one(st1), one(st2)))
+    J = torch.cat([J1, J2, Jg] if with_gravity else [J1, J2], dim=1)
+    W = cov_inv(pre) if Winv is None else Winv
+    JtW = J.T @ W
+    return r @ W @ r, JtW @ J, JtW @ r
 
 
 def _blocks(rows):

@@ -1,14 +1,24 @@
-"""Tensorized multi-resolution voxel plane map (port of the main-path
-subset of `voxelslam_tpu/map/voxel_map.py`; see that module for the design:
+"""Tensorized multi-resolution voxel plane map (port of
+`voxelslam_tpu/map/voxel_map.py`; see that module for the design:
 fixed-capacity hashed levels replacing the reference's OctoTree,
 voxelslam voxel_map.hpp:1047-1881).
 
 Per voxel: state 0 (no plane), 1 (plane leaf: match here), 2 (non-planar:
 descend). Window-frame statistics are local-frame centered clusters per
-(window slot, voxel), window axis major (W, C, ...). Only untracked
-levels (MapConfig.track_touched False, the default) are supported: the
-touched-slot (tsl) variants and `harvest` belong to later slices and
-raise or are absent.
+(window slot, voxel), window axis major (W, C, ...).
+
+Touched-slot tracking (`MapConfig.track_touched`, off by default) gives
+each level a (W, T) list `tsl` of the slots each window frame's scan
+touched (T = the level's unique_max, sentinel C). Insert writes the scan's
+U rows and its list, `marginalize` folds only the listed slots (a (T,)
+gather instead of whole-table passes), `evict` remaps the lists through
+the rehash. As in the JAX package, `insert_scan_fused` (the steady step's
+insert) refuses tracked levels with ValueError, so a pipeline with
+tracking on fails at its first steady scan.
+
+`harvest` gathers plane factors factor-major (`ba.lidar_factor.FactorBatch`,
+the autodiff oracle's layout); `harvest_t` gathers the same factors
+factor-minor for the LM loops, and equals `transpose_factors(harvest(...))`.
 
 XLA's drop-mode scatters become writes into a spare row at index C
 (`core.tensors.drop_set/drop_add`); every gather index is clamped or
@@ -30,10 +40,11 @@ import dataclasses
 
 import torch
 
+from ..ba.lidar_factor import FactorBatch
 from ..config import MapConfig
 from ..core import cluster as cl
 from ..core.cluster import Cluster
-from ..core.eig3 import eigh3
+from ..core.eig3 import eigh3_forward
 from ..core.tensors import (drop_add, drop_set, tmap, window_einsum,
                             window_wsum)
 from ..ops import voxel_hash as vh
@@ -68,7 +79,10 @@ class VoxelLevel:
     slab: torch.Tensor     # (C, SLAB) packed match record
     lam: torch.Tensor      # (C, 3) eigenvalues of the normalized cov
     jour: torch.Tensor     # (C,) travel-distance stamp at creation
-    tsl: torch.Tensor      # (W, T) touched-slot lists; T = 0 here
+    tsl: torch.Tensor      # (W, T) int32 touched-slot list per window
+                           # slot (sentinel C; T = 0: tracking off).
+                           # Invariant: win[w] is nonzero only at slots
+                           # listed in tsl[w]
 
     @property
     def normal(self):
@@ -85,9 +99,12 @@ class VoxelLevel:
 
 def empty_level(capacity: int, win_size: int, track_max: int = 0,
                 device=None, nw: int | None = None) -> VoxelLevel:
-    """An empty level; with `nw`, nw of them along a leading window axis."""
-    if track_max:
-        raise NotImplementedError("touched-slot tracking is not ported")
+    """An empty level with a `track_max`-wide touched-slot list (0 turns
+    tracking off); with `nw`, nw untracked levels along a leading window
+    axis (the global BA's window maps, which never marginalize)."""
+    if nw is not None and track_max:
+        raise ValueError("levels with a window axis are untracked: "
+                         "track_max must be 0")
     b = () if nw is None else (nw,)
     keys, occ = vh.empty_table(capacity, device, b)
     C = capacity
@@ -104,7 +121,7 @@ def empty_level(capacity: int, win_size: int, track_max: int = 0,
         slab=torch.zeros(b + (C, SLAB), **z),
         lam=torch.zeros(b + (C, 3), **z),
         jour=torch.zeros(b + (C,), **z),
-        tsl=torch.full(b + (win_size, 0), C, dtype=torch.int32,
+        tsl=torch.full(b + (win_size, track_max), C, dtype=torch.int32,
                        device=device),
     )
 
@@ -130,10 +147,10 @@ def point_noise_record(pts_body: torch.Tensor, dept_err: float,
 
 
 def empty_map(cfg: MapConfig, device=None):
-    if cfg.track_touched:
-        raise NotImplementedError("touched-slot tracking is not ported")
-    return tuple(empty_level(c, cfg.win_size, 0, device)
-                 for c in cfg.capacities)
+    return tuple(
+        empty_level(c, cfg.win_size,
+                    cfg.unique_max[l] if cfg.track_touched else 0, device)
+        for l, c in enumerate(cfg.capacities))
 
 
 def _set_slot(full, frame_slot, new, axis: int = 0):
@@ -159,20 +176,21 @@ def _rot_nv(R, nv):
 
 def insert_scan_level(lv: VoxelLevel, level_size: float, unique_max: int,
                       pts_world, pts_local, tr_pt, mask, frame_slot, jour):
-    """Insert one scan's points into a level at window slot `frame_slot`
-    (dense-column path). Returns (level, touched_slots (U,),
-    touched_valid (U,), dropped).
+    """Insert one scan's points into a level at window slot `frame_slot`.
+    Returns (level, touched_slots (U,), touched_valid (U,), dropped).
+
+    An untracked level takes the dense-column path: per-point sums into
+    (C,) columns, one whole-column merge. A tracked level (tsl width T > 0)
+    sums per unique voxel (U rows), merges those rows alone and lists
+    them in tsl[frame_slot]; U > T raises ValueError.
 
     With a leading window axis (a level of `empty_level(nw=...)`, points
     (Nw, P, 3), mask (Nw, P), `level_size` a float or an (Nw,) tensor)
     each window's scan goes into its own table at the same frame slot, and
     every output gains the axis. The per-slot sums run over the Nw tables
     laid end to end, each slot's in point order."""
-    if lv.tsl.shape[-1]:
-        raise NotImplementedError("touched-slot tracking is not ported")
     lead = lv.keys.shape[:-2]
     C = lv.keys.shape[-2]
-    NC = lv.occ.numel()
     if torch.is_tensor(level_size):
         level_size = level_size.reshape(lead + (1, 1))
     keys = vh.voxel_key(pts_world, level_size)
@@ -183,6 +201,34 @@ def insert_scan_level(lv: VoxelLevel, level_size: float, unique_max: int,
 
     inv = inv.long()
     us = uslots.long()
+    if lv.tsl.shape[-1]:
+        win, win_nv, tsl = _insert_rows(lv, frame_slot, uvalid, us, inv,
+                                        pts_local, nv_pt, mask)
+    else:
+        win, win_nv = _insert_columns(lv, frame_slot, us, inv, pts_local,
+                                      nv_pt, mask)
+        tsl = lv.tsl
+
+    newly = (uvalid & (us >= 0)
+             & ~torch.gather(lv.occ, -1, torch.clamp(us, min=0)))
+    jour_arr = drop_set(lv.jour.reshape(-1),
+                        vh.flat_index(torch.where(newly, us, -1), C),
+                        (torch.full_like(us, 0, dtype=lv.jour.dtype)
+                         + jour).reshape(-1)).reshape(lv.jour.shape)
+    lv = dataclasses.replace(lv, keys=tkeys, occ=occ, win=win,
+                             win_nv=win_nv, jour=jour_arr, tsl=tsl)
+    dropped = torch.sum((uvalid & (us < 0)).to(torch.int32), dim=-1)
+    return lv, uslots, uvalid & (us >= 0), dropped
+
+
+def _insert_columns(lv: VoxelLevel, frame_slot, us, inv, pts_local, nv_pt,
+                    mask):
+    """Dense-column insert: per-point sums into (C,)-sized columns (of
+    every table, with a window axis), merged into win[frame_slot] whole.
+    Returns (win, win_nv)."""
+    lead = lv.keys.shape[:-2]
+    C = lv.keys.shape[-2]
+    NC = lv.occ.numel()
     pslot = torch.where(inv >= 0, torch.gather(us, -1, torch.clamp(inv, min=0)),
                         -1)
     ok = ((mask > 0) & (pslot >= 0)).reshape(-1)
@@ -209,17 +255,51 @@ def insert_scan_level(lv: VoxelLevel, level_size: float, unique_max: int,
     win = _set_slot(lv.win, frame_slot, cl.merge(lv.win[at], added), ax)
     win_nv = _set_slot(lv.win_nv, frame_slot,
                        lv.win_nv[at] + nv_add.reshape(lead + (C, NV)), ax)
+    return win, win_nv
 
-    newly = (uvalid & (us >= 0)
-             & ~torch.gather(lv.occ, -1, torch.clamp(us, min=0)))
-    jour_arr = drop_set(lv.jour.reshape(-1),
-                        vh.flat_index(torch.where(newly, us, -1), C),
-                        (torch.full_like(us, 0, dtype=lv.jour.dtype)
-                         + jour).reshape(-1)).reshape(lv.jour.shape)
-    lv = dataclasses.replace(lv, keys=tkeys, occ=occ, win=win,
-                             win_nv=win_nv, jour=jour_arr)
-    dropped = torch.sum((uvalid & (us < 0)).to(torch.int32), dim=-1)
-    return lv, uslots, uvalid & (us >= 0), dropped
+
+def _insert_rows(lv: VoxelLevel, frame_slot, uvalid, us, inv, pts_local,
+                 nv_pt, mask):
+    """Touched-slot insert (one table): per-voxel sums over the U unique
+    keys, merged into their rows of win[frame_slot], which tsl[frame_slot]
+    then lists. Returns (win, win_nv, tsl)."""
+    C = lv.keys.shape[0]
+    W = lv.win.n.shape[0]
+    U = us.shape[0]
+    T = lv.tsl.shape[1]
+    if U > T:
+        # rows past T would hold window stats the sparse marginalize never
+        # sees (dropped at the column clear): refuse, as the JAX package
+        raise ValueError(
+            f"insert_scan_level: scan unique cap U={U} exceeds the "
+            f"touched-slot track width T={T}; size tsl to unique_max or "
+            f"disable tracking (T=0) for this level")
+    ok = (mask > 0) & (inv >= 0)
+    seg = torch.where(ok, inv, U)
+    w = ok.to(pts_local.dtype)
+    n_add = drop_add(pts_local.new_zeros((U,)), seg, w)
+    sum_p = drop_add(pts_local.new_zeros((U, 3)), seg, pts_local * w[:, None])
+    mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
+    d = (pts_local - mu_add[torch.clamp(inv, 0, U - 1)]) * w[:, None]
+    S_add = drop_add(pts_local.new_zeros((U, 3, 3)), seg,
+                     d[:, :, None] * d[:, None, :])
+    nv_add = drop_add(pts_local.new_zeros((U, NV)), seg, nv_pt * w[:, None])
+
+    row_ok = uvalid & (us >= 0)
+    flat = frame_slot * C + torch.clamp(torch.where(row_ok, us, 0), 0, C - 1)
+    tgt = torch.where(row_ok, flat, W * C)
+    win_flat = tmap(lambda a: a.reshape((W * C,) + a.shape[2:]), lv.win)
+    merged = cl.merge(win_flat[flat], Cluster(n=n_add, mu=mu_add, S=S_add))
+    win = tmap(lambda full, new, like: drop_set(full, tgt, new).reshape(
+        like.shape), win_flat, merged, lv.win)
+    nvw_flat = lv.win_nv.reshape(W * C, NV)
+    win_nv = drop_set(nvw_flat, tgt, nvw_flat[flat] + nv_add).reshape(
+        lv.win_nv.shape)
+    row = torch.full((T,), C, dtype=lv.tsl.dtype, device=us.device)
+    row[:U] = torch.where(row_ok, us, C)
+    tsl = lv.tsl.clone()
+    tsl[frame_slot] = row
+    return win, win_nv, tsl
 
 
 def insert_scan(levels, cfg: MapConfig, pts_world, pts_local, tr_pt, mask,
@@ -448,7 +528,7 @@ def _plane_fit(total: Cluster, nv_total, occ, layer, cfg: MapConfig,
                min_eig, thr):
     """Plane fit of a batch of total clusters -> (state, slab, lam)."""
     covm = cl.cov(total)
-    lam, V = eigh3(covm)
+    lam, V = eigh3_forward(covm)
     n = total.n
     enough = n > cfg.min_point[layer]
     is_plane = (occ & enough & (lam[..., 0] < min_eig)
@@ -573,32 +653,74 @@ def match_points(levels, cfg: MapConfig, pts_world, var_world, mask):
 def marginalize_level(lv: VoxelLevel, cfg: MapConfig, Rs, ps, mp, win_count,
                       mgsize: int) -> VoxelLevel:
     """Fold the oldest `mgsize` window frames into the fixed statistics
-    (voxels under the max_points cap), then clear those window slots."""
-    if lv.tsl.shape[1]:
-        raise NotImplementedError("touched-slot tracking is not ported")
+    (voxels under the max_points cap), then clear those window slots.
+
+    A tracked level folds sparsely: each frame's column is nonzero only at
+    the <= T slots its scan listed in tsl, so the transform, merge and cap
+    run on a (T,) gather. The cap is checked once, against the counts
+    before the fold (reference margi, voxel_map.hpp:1543), on both paths.
+    The column clear stays a whole write, which keeps the tsl invariant."""
     C = lv.keys.shape[0]
-    moved = Cluster.empty((C,), device=lv.fix.n.device)
-    nv_m = torch.zeros_like(lv.fix_nv)
+    if lv.tsl.shape[1]:
+        fix, fix_nv = _fold_rows(lv, cfg, Rs, ps, mp, mgsize)
+    else:
+        moved = Cluster.empty((C,), device=lv.fix.n.device)
+        nv_m = torch.zeros_like(lv.fix_nv)
+        for i in range(mgsize):
+            moved = cl.merge(moved, cl.transform(lv.win[mp[i]], Rs[i], ps[i]))
+            nv_m = nv_m + _rot_nv(Rs[i], lv.win_nv[mp[i]])
+        take = lv.fix.n < cfg.max_points
+        folded = cl.merge(lv.fix, moved)
+        fix = Cluster(n=torch.where(take, folded.n, lv.fix.n),
+                      mu=torch.where(take[:, None], folded.mu, lv.fix.mu),
+                      S=torch.where(take[:, None, None], folded.S, lv.fix.S))
+        fix_nv = torch.where(take[:, None], lv.fix_nv + nv_m, lv.fix_nv)
+    win, win_nv, tsl = lv.win, lv.win_nv, lv.tsl
     for i in range(mgsize):
-        moved = cl.merge(moved, cl.transform(lv.win[mp[i]], Rs[i], ps[i]))
-        nv_m = nv_m + _rot_nv(Rs[i], lv.win_nv[mp[i]])
-    take = lv.fix.n < cfg.max_points
-    folded = cl.merge(lv.fix, moved)
-    fix = Cluster(n=torch.where(take, folded.n, lv.fix.n),
-                  mu=torch.where(take[:, None], folded.mu, lv.fix.mu),
-                  S=torch.where(take[:, None, None], folded.S, lv.fix.S))
-    fix_nv = torch.where(take[:, None], lv.fix_nv + nv_m, lv.fix_nv)
-    win, win_nv = lv.win, lv.win_nv
-    for i in range(mgsize):
-        win = tmap(lambda a: _zero_slot(a, mp[i]), win)
-        win_nv = _zero_slot(win_nv, mp[i])
+        win = tmap(lambda a: _fill_slot(a, mp[i], 0.0), win)
+        win_nv = _fill_slot(win_nv, mp[i], 0.0)
+        if tsl.shape[1]:
+            tsl = _fill_slot(tsl, mp[i], C)
     return dataclasses.replace(lv, fix=fix, fix_nv=fix_nv, win=win,
-                               win_nv=win_nv)
+                               win_nv=win_nv, tsl=tsl)
 
 
-def _zero_slot(a, slot):
+def _fold_rows(lv: VoxelLevel, cfg: MapConfig, Rs, ps, mp, mgsize: int):
+    """The sparse fold of a tracked level: (fix, fix_nv) after folding the
+    listed slots of the first `mgsize` frames of mp."""
+    C = lv.keys.shape[0]
+    W = lv.win.n.shape[0]
+    fix, fix_nv = lv.fix, lv.fix_nv
+    pre_n = lv.fix.n
+    win_flat = tmap(lambda a: a.reshape((W * C,) + a.shape[2:]), lv.win)
+    nvw_flat = lv.win_nv.reshape(W * C, NV)
+    for i in range(mgsize):
+        row = lv.tsl[mp[i]].long()                   # (T,) slot ids
+        sv = row < C
+        si = torch.where(sv, row, 0)
+        svf = sv.to(fix.mu.dtype)
+        flat = mp[i].long() * C + si
+        c_l = win_flat[flat]
+        c_l = Cluster(n=c_l.n * svf, mu=c_l.mu * svf[:, None],
+                      S=c_l.S * svf[:, None, None])
+        c_w = cl.transform(c_l, Rs[i], ps[i])
+        nv_w = _rot_nv(Rs[i], nvw_flat[flat] * svf[:, None])
+        f_u, fnv_u = fix[si], fix_nv[si]
+        take = pre_n[si] < cfg.max_points
+        folded = cl.merge(f_u, c_w)
+        new = Cluster(n=torch.where(take, folded.n, f_u.n),
+                      mu=torch.where(take[:, None], folded.mu, f_u.mu),
+                      S=torch.where(take[:, None, None], folded.S, f_u.S))
+        tgt = torch.where(sv, si, C)
+        fix = tmap(lambda full, v: drop_set(full, tgt, v), fix, new)
+        fix_nv = drop_set(fix_nv, tgt, torch.where(take[:, None],
+                                                   fnv_u + nv_w, fnv_u))
+    return fix, fix_nv
+
+
+def _fill_slot(a, slot, value):
     a = a.clone()
-    a[slot] = 0.0
+    a[slot] = value
     return a
 
 
@@ -633,12 +755,19 @@ def evict_level(lv: VoxelLevel, jour_now, max_dist: float):
         return drop_set(torch.zeros_like(src), tgt,
                         torch.where(k, src, 0.0), dim=1)
 
+    # touched-slot lists hold old slot ids: remap them through the rehash
+    # (evicted and dropped voxels become the sentinel C)
+    tsl = lv.tsl
+    if tsl.shape[1]:
+        remap = torch.cat([tgt, tgt.new_full((1,), C)])
+        tsl = remap[torch.clamp(tsl.long(), 0, C)].to(tsl.dtype)
+
     return VoxelLevel(
         keys=nkeys, occ=nocc, win=tmap(perm_w, lv.win),
         win_nv=perm_w(lv.win_nv), fix=tmap(perm, lv.fix),
         fix_nv=perm(lv.fix_nv), tot=tmap(perm, lv.tot),
         tot_nv=perm(lv.tot_nv), state=perm(lv.state), slab=perm(lv.slab),
-        lam=perm(lv.lam), jour=perm(lv.jour), tsl=lv.tsl), dropped
+        lam=perm(lv.lam), jour=perm(lv.jour), tsl=tsl), dropped
 
 
 def evict(levels, jour_now, max_dist: float = 700.0):
@@ -669,13 +798,10 @@ def compact_indices(flags: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return torch.where(idx < C, idx, fill)
 
 
-def harvest_level_t(lv: VoxelLevel, cfg: MapConfig, mp, factor_max: int,
-                    eig_ratio: float):
-    """Eligible plane voxels (plane leaf, lam0 <= eig_ratio lam1, live
-    window points) as factor-minor arrays: (n_l (W,F), mu_l (W,3,F),
-    S_l (W,3,3,F), fix_n (F,), fix_mu (3,F), fix_S (3,3,F), vf (F,)); a
-    level with a leading window axis gives each array that axis."""
-    lead = lv.keys.shape[:-2]
+def _eligible(lv: VoxelLevel, factor_max: int, eig_ratio: float):
+    """The first factor_max eligible plane voxels (plane leaf, lam0 <=
+    eig_ratio lam1, live window points; reference tras_opt): (valid (F,),
+    slot (F,) clamped into the table)."""
     C = lv.keys.shape[-2]
     n_win = torch.sum(lv.win.n, dim=-2)
     eligible = ((lv.state == STATE_PLANE)
@@ -683,8 +809,42 @@ def harvest_level_t(lv: VoxelLevel, cfg: MapConfig, mp, factor_max: int,
                                                              min=1e-12))
                 & (n_win > 0))
     idx = compact_indices(eligible, factor_max, C)
-    valid = idx < C
-    safe = torch.clamp(idx, max=C - 1)
+    return idx < C, torch.clamp(idx, max=C - 1)
+
+
+def harvest_level(lv: VoxelLevel, cfg: MapConfig, mp, factor_max: int,
+                  eig_ratio: float):
+    """Eligible plane voxels as factor-major clusters: (win (F, W) in
+    logical frame order, fix (F,), valid (F,)), zero on invalid rows."""
+    valid, safe = _eligible(lv, factor_max, eig_ratio)
+
+    def keep(a):
+        return torch.where(valid.reshape((-1,) + (1,) * (a.dim() - 1)), a,
+                           torch.zeros_like(a))
+    win = tmap(lambda a: keep(a[mp.long()][:, safe].movedim(0, 1)), lv.win)
+    return win, tmap(lambda a: keep(a[safe]), lv.fix), valid
+
+
+def harvest(levels, cfg: MapConfig, mp, factor_max: int) -> FactorBatch:
+    """Factor-major harvest across levels (concatenated on the factor
+    axis), each factor with coefficient 1."""
+    parts = [harvest_level(lv, cfg, mp, factor_max, cfg.eig_ratio_ba)
+             for lv in levels]
+    win = tmap(lambda *xs: torch.cat(xs), *[p[0] for p in parts])
+    fix = tmap(lambda *xs: torch.cat(xs), *[p[1] for p in parts])
+    valid = torch.cat([p[2] for p in parts])
+    return FactorBatch(win=win, fix=fix, coeff=valid.to(torch.float32),
+                       valid=valid)
+
+
+def harvest_level_t(lv: VoxelLevel, cfg: MapConfig, mp, factor_max: int,
+                    eig_ratio: float):
+    """`harvest_level`'s factors as factor-minor arrays: (n_l (W,F),
+    mu_l (W,3,F), S_l (W,3,3,F), fix_n (F,), fix_mu (3,F), fix_S (3,3,F),
+    vf (F,)); a level with a leading window axis gives each array that
+    axis."""
+    lead = lv.keys.shape[:-2]
+    valid, safe = _eligible(lv, factor_max, eig_ratio)
     vf = valid.to(lv.win.mu.dtype)
     b = ((torch.arange(lead[0], device=safe.device)[:, None],) if lead
          else ())                   # each window gathers from its own table

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.eig3 import eigh3
+from ..core.eig3 import eigh3_forward
 
 NMATCH = 5  # reference tools.hpp:17
 
@@ -72,7 +72,7 @@ def plane_fit_nn(query_world: torch.Tensor, ref: torch.Tensor,
     c = torch.mean(A, dim=-2)
     D = A - c[..., None, :]
     M = torch.einsum("...ki,...kj->...ij", D, D)
-    _, V = eigh3(M)
+    _, V = eigh3_forward(M)
     normal = V[..., :, 0]
     d = -torch.sum(normal * c, dim=-1)
     resid = torch.abs(torch.einsum("...ki,...i->...k", A, normal)
