@@ -5,22 +5,35 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   1. device   - nvidia-smi name and power limit, torch device name;
-  2. build    - nvcc builds the moments kernel from csrc/ (sm_90a) while
-                g++ builds the native descriptor store (csrc/btcdb.cpp)
-                and the scan ingest and loader (csrc/ingest.cpp,
-                csrc/loader.cpp);
-  3. kernel   - the kernel against its plain version at the bench shapes
-                (uniform and adversarial slots) and at the default
+  2. build    - one nvcc a CUDA source builds the moments and the
+                segment_add kernels from csrc/ (sm_90a) while g++ builds
+                the native descriptor store (csrc/btcdb.cpp) and the scan
+                ingest and loader (csrc/ingest.cpp, csrc/loader.cpp);
+  3. kernel   - the moments kernel against its plain version at the bench
+                shapes (uniform and adversarial slots) and at the default
                 config's shapes: within tolerance, bitwise repeatable and
                 bitwise equal to the CPU's sequential index_add_ (each a
                 check that fails the run); warm- and cold-L2 times with
-                the queue full (see `time_ms`) and the HBM bound;
+                the queue full (see `time_ms`) and the HBM bound; the
+                segment_add kernel held the same way at each width the
+                port uses (a hot row, the dropped index) and at the pose
+                graph's 1,000,000 rows of 6x6 blocks;
   4. slice    - SlamPipeline.process_scan at bench.py's configuration and
-                scene (22 warm-up + 40 steady scans, then flush): init
+                scene (22 warm-up + 40 steady scans, then flush) through
+                its step graphs, under deterministic algorithms: init
                 succeeds, no reset, finite poses, ATE < 0.10 m, one kernel
                 launch per steady scan, and a second run bitwise equal;
      then the same checks and times on the main path's own inputs
      (the last steady scan's), with their slot statistics per level;
+  4b. steady_graph - the slice as a user runs it (deterministic algorithms
+                off): graphed, eager (`step_graphs=False`), graphed; the
+                three bitwise equal, ATE < 0.10 m, one moments launch per
+                steady scan, segment_add on the path; ms a steady scan
+                each way, host launches a scan and device busy share
+                (torch.profiler over the second graphed run's last 12
+                scans), device ms of a replay, capture seconds, peak memory; then segment_add
+                checked and timed on the main path's own inputs (the
+                downsample's);
   5. system   - SlamSystem.process_scan with loop closure on, at bench.py's
                 widths, over the elevator scenario of tests/test_elevator.py
                 (434 scans: a room loop, out onto an open floor and back):
@@ -30,7 +43,8 @@ Phases, each printing one JSON line:
                 steady scan, the native store behind every descriptor DB,
                 and a second run bitwise equal (poses, loop edges, GBA
                 edges and submaps, correction scans) until 10 scans past
-                the first correction; scans/s, ms per steady scan and the
+                the first correction, both runs with deterministic
+                algorithms off, as a user runs them; scans/s, ms per steady scan and the
                 synchronised host time of each loop stage per keyframe;
      with GBA on in both runs (`enable_gba=True`): the first run ends
      with finish() (bottom-up flush, total BA, top-down solve): windows,
@@ -97,7 +111,8 @@ Phases, each printing one JSON line:
                 no moments kernel runs here;
   12. timing  - the wall seconds of the phases (device, build, kernel and
                 slice together as `to_system`);
-  13. kernels - one line listing every kernel with its numbers;
+  13. kernels - one line listing every kernel with its numbers (launches
+                by path: each phase's own, counted from 0);
   14. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
@@ -119,6 +134,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 KERNEL_TOL = 1e-5               # max abs error / max |sum|
 ATE_LIMIT = 0.10                # m (JAX e2e bound, tests/test_pipeline_e2e.py)
 N_WARM, N_STEADY = 22, 40       # bench.py's warm-up and segment length
+N_PROF = 12                     # phase steady_graph: the last steady scans
+                                # (3 dispatches of 4), profiled
+SEG_WIDTHS = (1, 3, 4, 6, 9, 18, 36)   # segment_add: the port's widths
+SEG_ROWS = 4096                 # rows and sources of the width sweep
+SEG_POSES = 1000                # segment_add at the pose graph's K^2 rows
 N_TIMED = 100                   # calls per timed CUDA graph
 N_REPEAT = 5                    # graph replays per timing median
 FLUSH_BYTES = 128 << 20         # written between calls for cold-L2 times
@@ -374,62 +394,293 @@ def kernel_phase(name, slots, upds, caps, flush, **extra):
     return err, tm
 
 
-@contextlib.contextmanager
-def capturing(capture):
-    """While active, `capture` holds the inputs (slots, upds, caps) of the
-    last `moments.accumulate` call, the map insert's."""
-    from voxelslam_tpu_torch.ops import moments as mo
-    real = mo.accumulate
+def segment_inputs(C, N, D, seed, hot=True):
+    """buf (C, D), idx (N,) in [0, C] (C is the dropped row) and val
+    (N, D) on the card; with `hot`, a third of the sources on row 7."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, C + 1, (N,), generator=g)
+    if hot:
+        idx[::3] = 7
+    return (torch.randn((C, D), generator=g).cuda(), idx.cuda(),
+            torch.randn((N, D), generator=g).cuda())
 
-    def spy(slots, upds, caps):
-        capture[:] = [slots.clone(), upds.clone(), tuple(caps)]
-        return real(slots, upds, caps)
-    mo.accumulate = spy
+
+def check_segment(buf, idx, val):
+    """segment_add against its plain version on the card: (max_abs_err,
+    scale, bitwise_repeat, bitwise_vs_cpu). Restores the launch count."""
+    import torch
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    n0 = sa.counter.launches
+    out = sa.segment_add(buf, idx, val)
+    out2 = sa.segment_add(buf, idx, val)
+    sa.counter.launches = n0
+    ref = sa.segment_add_ref(buf, idx, val)
+    cpu = sa.segment_add_ref(buf.cpu(), idx.cpu(), val.cpu())
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    return (err, float(ref.abs().max()), torch.equal(bits(out), bits(out2)),
+            torch.equal(bits(out), bits(cpu)))
+
+
+def time_segment(buf, idx, val, flush):
+    """segment_add (sort, search and kernel), the kernel alone, cold-L2,
+    plain and library (`index_add_`) ms, and the bytes bound in ms."""
+    import torch
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    C, N = buf.shape[0], idx.shape[0]
+    buf2, val2 = buf.reshape(C, -1), val.reshape(N, -1)
+    perm, starts = sa.segments(idx, C)
+    out = torch.empty_like(buf2)
+    padded = torch.cat([buf2, buf2.new_zeros((1, buf2.shape[1]))])
+    n0 = sa.counter.launches
+    ms = time_ms(lambda: sa.segment_add(buf, idx, val))
+    kernel = time_ms(lambda: sa.launch(buf2, val2, perm, starts, out))
+    cold = cold_ms(lambda: sa.segment_add(buf, idx, val), flush)
+    sa.counter.launches = n0          # timing launches are not the main path
+    plain = time_ms(lambda: sa.segment_add_ref(buf, idx, val))
+    library = time_ms(lambda: padded.index_add_(0, idx, val2))
+    nbytes = (val.numel() * val.element_size()
+              + idx.numel() * idx.element_size()
+              + 2 * buf.numel() * buf.element_size())
+    return dict(ms=ms, kernel_ms=kernel, cold_ms=cold, plain_ms=plain,
+                library_ms=library, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def segment_phase(name, buf, idx, val, flush=None, **extra):
+    """Check (and with `flush`, time) segment_add on one input; fail the
+    run on any disagreement. Returns (max_abs_err, times)."""
+    err, scale, repeat, vs_cpu = check_segment(buf, idx, val)
+    within = err <= KERNEL_TOL * max(scale, 1.0)
+    tm = time_segment(buf, idx, val, flush) if flush is not None else {}
+    emit("kernel", kernel="segment_add", input=name, C=buf.shape[0],
+         N=idx.shape[0], D=buf[0].numel(), max_abs_err=err,
+         max_abs_sum=scale, tol=KERNEL_TOL, bitwise_repeat=repeat,
+         bitwise_vs_cpu_index_add=vs_cpu, **tm, **extra,
+         ok=within and repeat and vs_cpu)
+    if not (within and repeat and vs_cpu):
+        fail(f"segment_add disagrees with the CPU's index_add_ ({name}): "
+             f"err {err}, repeat {repeat}, bitwise vs CPU {vs_cpu}")
+    return err, tm
+
+
+@contextlib.contextmanager
+def capturing(capture, kernel="accumulate"):
+    """While active, `capture` holds the arguments (tensors cloned) of the
+    last call of a kernel's wrapper: `moments.accumulate` (slots, upds,
+    caps: the map insert's) or `segment_add.segment_add` (buf, idx, val:
+    in the steady scan, the downsample's)."""
+    import torch
+    from voxelslam_tpu_torch.ops import moments, segment_add
+    mod = {"accumulate": moments, "segment_add": segment_add}[kernel]
+    real = getattr(mod, kernel)
+
+    def spy(*args):
+        capture[:] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        return real(*args)
+    setattr(mod, kernel, spy)
     try:
         yield capture
     finally:
-        mo.accumulate = real
+        setattr(mod, kernel, real)
 
 
-def run_slice(cfg, traj, packets, device, capture=None):
+def run_slice(cfg, traj, packets, device, capture=None, step_graphs=True,
+              n_prof=0):
     """Drive SlamPipeline.process_scan over the packets; returns a dict of
-    results. `capture` receives the last moments-kernel inputs."""
+    results. `capture` receives the last moments-kernel inputs. With
+    `n_prof`, the steady scans are timed without the last n_prof, which
+    run under `profile_scans`."""
     import numpy as np
     import torch
     from voxelslam_tpu_torch.pipeline import SlamPipeline
     from voxelslam_tpu_torch.ops import moments as mo
+    from voxelslam_tpu_torch.ops import segment_add as sa
     from voxelslam_tpu_torch.utils.metrics import ate_rmse
 
+    timed_end = len(packets) - n_prof
+    prof = None
     with (capturing(capture) if capture is not None
           else contextlib.nullcontext()):
-        pipe = SlamPipeline(cfg, collect_clouds=False, device=device)
+        pipe = SlamPipeline(cfg, collect_clouds=False, device=device,
+                            step_graphs=step_graphs)
         phases, n_steady, refills = [], 0, 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mo.counter.reset()
+        sa.counter.reset()
         t_steady = None
         for k, pkt in enumerate(packets):
             if k == N_WARM:
                 torch.cuda.synchronize()
                 t_steady = time.perf_counter()
+            if k == timed_end:
+                torch.cuda.synchronize()
+                steady_s = time.perf_counter() - t_steady
+                prof = profile_scans(pipe, packets[k:], phases)[0]
+                n_steady += len(packets) - k
+                break
             n_steady += int(pipe.init_done)
             out = pipe.process_scan(*pkt)
             phases.append(out.get("phase"))
             refills += int(bool(out.get("accum")))
-        torch.cuda.synchronize()
-        steady_s = time.perf_counter() - t_steady
+        else:
+            torch.cuda.synchronize()
+            steady_s = time.perf_counter() - t_steady
         pipe.flush()
         launches = mo.counter.launches
+        seg_launches = sa.counter.launches
     poses = pipe.scan_poses
     est = np.stack([sp.p for sp in poses])
     rot = np.stack([sp.R for sp in poses])
     gt = np.stack([traj.state_at(sp.t)[1] for sp in poses])
     return dict(
         phases=phases, init_done=pipe.init_done, n_steady=n_steady,
-        refills=refills, launches=launches, poses=len(poses), est=est, rot=rot,
+        refills=refills, launches=launches, seg_launches=seg_launches,
+        poses=len(poses), est=est, rot=rot,
         finite=bool(np.isfinite(est).all() and np.isfinite(rot).all()),
-        ate=float(ate_rmse(est, gt)), steady_scans=len(packets) - N_WARM,
-        steady_s=steady_s, peak_bytes=torch.cuda.max_memory_allocated())
+        ate=float(ate_rmse(est, gt)), steady_scans=timed_end - N_WARM,
+        steady_s=steady_s, peak_bytes=torch.cuda.max_memory_allocated(),
+        capture_s={k: g.capture_s for k, g in pipe._graphs.items()},
+        profile=prof, pipe=pipe)
+
+
+def profile_scans(pipe, packets, phases=None):
+    """process_scan over `packets` (whole dispatches) under torch.profiler:
+    host calls into the CUDA runtime that launch work on the card (kernels,
+    graphs, copies, fills) a scan, kernels and device busy time a scan and
+    share, the kernels that take the most device time, and the device time
+    of the kernels under each `stage:NAME` profiler range a caller opened
+    (`tools/profile_torch_slice.py`). Returns (summary, [(kernel, calls,
+    device us)])."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pkt in packets:
+            out = pipe.process_scan(*pkt)
+            if phases is not None:
+                phases.append(out.get("phase"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(packets)
+
+    def device_us(e, own):
+        dev = getattr(e, f"{own}device_time_total", None)
+        return dev if dev is not None else getattr(e, f"{own}cuda_time_total",
+                                                   0)
+    runtime, kernels, stages = {}, [], {}
+    for e in prof.key_averages():
+        on_card = str(e.device_type).endswith("CUDA")
+        if e.key.startswith("stage:"):
+            # the range on the host holds its kernels' device time; its
+            # span on the card's timeline is no kernel
+            if not on_card:
+                stages[e.key[6:]] = device_us(e, "") / 1e3 / n
+        elif on_card:
+            kernels.append((e.key, e.count, device_us(e, "self_")))
+        elif e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                               "cudaMemcpy", "cudaMemset")):
+            runtime[e.key] = runtime.get(e.key, 0) + e.count
+    kernels.sort(key=lambda k: -k[2])
+    busy_us = sum(k[2] for k in kernels)
+    summary = dict(
+        scans=n, wall_ms_per_scan=1e3 * wall / n,
+        host_launches_per_scan=sum(runtime.values()) / n,
+        host_launches_by_call={k: v / n for k, v in runtime.items()},
+        device_kernels_per_scan=sum(k[1] for k in kernels) / n,
+        device_busy_ms_per_scan=busy_us / 1e3 / n,
+        device_busy_share=busy_us / 1e6 / wall,
+        top_kernels=[{"name": k[0][:120], "calls_per_scan": k[1] / n,
+                      "device_ms_per_scan": k[2] / 1e3 / n}
+                     for k in kernels[:15]])
+    if stages:
+        summary["stage_device_ms_per_scan"] = dict(sorted(
+            stages.items(), key=lambda kv: -kv[1]))
+    return summary, kernels
+
+
+def replay_ms(graph, reps=5):
+    """Device ms of one replay of a step graph (CUDA events, median)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def steady_graph_phase(cfg, traj, packets, smi_line, capture):
+    """The slice with `torch.use_deterministic_algorithms` off, as a user
+    runs it: graphed (`SlamPipeline(step_graphs=True)`), eager, graphed,
+    in one call. The graphed runs bitwise equal to each other and to the
+    eager run, ATE < 0.10 m, one moments launch per steady scan, the
+    segment_add kernel on the path; ms a steady scan each way, host
+    launches a scan and device busy share (torch.profiler over the second
+    graphed run's last N_PROF scans; device time of a replay by events),
+    capture seconds, peak memory. `capture` receives the last segment_add
+    inputs. Returns the first graphed run's (moments, segment_add)
+    launches."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.ops import moments as mo
+    torch.use_deterministic_algorithms(False)
+    runs = []
+    for graphed in (True, False, True):
+        with (capturing(capture, "segment_add") if not runs
+              else contextlib.nullcontext()):
+            runs.append(run_slice(cfg, traj, packets, "cuda",
+                                  step_graphs=graphed,
+                                  n_prof=N_PROF if len(runs) == 2 else 0))
+    g1, eager, g2 = runs
+    pipe = g1.pop("pipe")
+    replay = {k: replay_ms(g.graph) for k, g in pipe._graphs.items()}
+    del pipe
+    for r in (eager, g2):
+        r.pop("pipe")
+
+    def same(a, b):
+        return bool(np.array_equal(a["est"], b["est"])
+                    and np.array_equal(a["rot"], b["rot"]))
+    checks = {
+        "init_done": all(r["init_done"] for r in runs),
+        "no_reset": not any(p in ("reset", "init_failed")
+                            for r in runs for p in r["phases"]),
+        "finite": all(r["finite"] for r in runs),
+        "ate_below_limit": all(r["ate"] < ATE_LIMIT for r in runs),
+        "graphed_runs_bitwise_equal": same(g1, g2),
+        "graphed_bitwise_equal_to_eager": same(g1, eager),
+        "one_moments_launch_per_steady_scan": all(
+            r["launches"] == r["n_steady"] > 0 for r in runs),
+        "segment_add_on_the_path": g1["seg_launches"] >= g1["n_steady"] > 0,
+    }
+    per_scan = lambda r: 1e3 * r["steady_s"] / r["steady_scans"]  # noqa: E731
+    emit("steady_graph", config="bench.py", nvidia_smi=smi_line,
+         deterministic_algorithms=False, scans=len(packets),
+         steady_scans_timed=[r["steady_scans"] for r in runs],
+         profiled_scans=N_PROF,
+         ate_m=[r["ate"] for r in runs],
+         graphed_ms_per_scan=[per_scan(g1), per_scan(g2)],
+         eager_ms_per_scan=per_scan(eager),
+         graphed_steady_scans_per_s=1e3 / per_scan(g1),
+         profile_graphed=g2["profile"],
+         replay_device_ms=replay,
+         capture_s=g1["capture_s"],
+         peak_mem_bytes_graphed=g1["peak_bytes"],
+         peak_mem_bytes_eager=eager["peak_bytes"],
+         moments_launches=g1["launches"],
+         segment_add_launches=g1["seg_launches"],
+         steady_calls=g1["n_steady"], checks=checks)
+    if not all(checks.values()):
+        fail(f"steady_graph checks failed: {checks}")
+    return g1["launches"], g1["seg_launches"]
 
 
 def slice_mg2_phase(cfg, traj, packets):
@@ -605,7 +856,7 @@ def profile_window(runner, step):
     root = os.path.dirname(os.path.abspath(__file__))
     sources = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        if "called a synchronizing" in str(w.message):
             at = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
             sources[at] = sources.get(at, 0) + 1
     torch.cuda.synchronize()
@@ -1001,7 +1252,7 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
                 corr_ks.append(k)
             kf_scan.append(corr or sum(len(s) for s in lp.keyframes) > n_kf)
             phases.append(out.get("phase"))
-            xs.append(sysm.odom.x.p.cpu().numpy())
+            xs.append(np.array(sysm.odom.x.p.cpu()))
             errs.append(float(np.linalg.norm(xs[-1] - gt[k])))
             if corr and tail is not None and snap_at is None:
                 snap_at = k + 1 + tail
@@ -1144,9 +1395,7 @@ def system_phase(smi_line):
     elevator scenario, twice, and phase 6 on the first run; fails the run
     on any check."""
     import tempfile
-    import torch
     from voxelslam_tpu_torch.io import simulator
-    torch.use_deterministic_algorithms(True)
     cfg = system_config()
     t0 = time.perf_counter()
     packets, gt = elevator_packets()
@@ -1161,7 +1410,6 @@ def system_phase(smi_line):
                        traj=traj, savepath=savepath)
         sessions_phase(r.pop("sysm"), cfg)
     r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"])
-    torch.use_deterministic_algorithms(False)
     identical = same_snapshot(r["snap"], r2["snap"])
     names = r["phases"]
     cross0 = [e for e in r["edges"] if e[0] != e[1] and 0 in (e[0], e[1])]
@@ -1443,14 +1691,15 @@ def cli_phase(smi_line):
 
 def _continue(sysm, packets):
     """process_scan over the packets; (positions, rotations) after each,
-    and the number of steady calls."""
+    and the number of steady calls. The pose is copied: on the CPU, x is
+    the step graph's buffer, which the next dispatch overwrites."""
     import numpy as np
     ps, Rs, n_steady = [], [], 0
     for pkt in packets:
         n_steady += int(sysm.odom.init_done)
         sysm.process_scan(*pkt)
-        ps.append(sysm.odom.x.p.cpu().numpy())
-        Rs.append(sysm.odom.x.R.cpu().numpy())
+        ps.append(np.array(sysm.odom.x.p.cpu()))
+        Rs.append(np.array(sysm.odom.x.R.cpu()))
     return np.stack(ps), np.stack(Rs), n_steady
 
 
@@ -2122,6 +2371,7 @@ def main():
     try:
         import voxelslam_tpu_torch  # noqa: F401
         from voxelslam_tpu_torch.ops import moments as mo
+        from voxelslam_tpu_torch.ops import segment_add as sa
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
 
@@ -2138,19 +2388,22 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build: nvcc and two g++ side by side
+    # 2. build: one nvcc a CUDA source and two g++, side by side
     from concurrent.futures import ThreadPoolExecutor
     from voxelslam_tpu_torch import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(mo.build), pool.submit(native.build, "btcdb"),
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(mo.build), pool.submit(sa.build),
+                  pool.submit(native.build, "btcdb"),
                   pool.submit(native.build, "ingest")]
-        lib, store, ingest = [f.result() for f in builds]
+        lib, seg_lib, store, ingest = [f.result() for f in builds]
     mo._library()
+    sa._library()
     native.library("btcdb")
     native.library("ingest")
     emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
-         descriptor_store=store.name, ingest_loader=ingest.name)
+         segment_add=seg_lib.name, descriptor_store=store.name,
+         ingest_loader=ingest.name)
 
     # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
@@ -2163,6 +2416,13 @@ def main():
             ("default_config", DEFAULT_SHAPES, False, 2)):
         slots, upds = kernel_inputs(*shapes, adv, seed)
         errs.append(kernel_phase(name, slots, upds, shapes[0], flush)[0])
+    seg_errs = []
+    for D in SEG_WIDTHS:               # the port's widths, a hot row
+        seg_errs.append(segment_phase(f"width_{D}", *segment_inputs(
+            SEG_ROWS, SEG_ROWS, D, 10 + D))[0])
+    seg_errs.append(segment_phase(     # the pose graph's 6x6 blocks
+        "pose_graph_blocks", *segment_inputs(
+            SEG_POSES * SEG_POSES, 4 * (SEG_POSES + 9), 36, 3, hot=False))[0])
     del flush, slots, upds            # not part of the slice's peak memory
     mo.counter.reset()
 
@@ -2172,6 +2432,8 @@ def main():
     capture = []
     runs = [run_slice(cfg, traj, packets, "cuda", capture)]
     runs.append(run_slice(cfg, traj, packets, "cuda"))
+    for x in runs:
+        x.pop("pipe")
     r = runs[0]
     identical = (np.array_equal(r["est"], runs[1]["est"])
                  and np.array_equal(r["rot"], runs[1]["rot"]))
@@ -2202,28 +2464,40 @@ def main():
     errs.append(err)
     del flush, slots, upds
 
+    # the slice as a user runs it: graphed twice, eager once
+    seg_capture = []
+    t0 = time.perf_counter()
+    launches = {"slice": r["launches"]}
+    seg_launches = {"slice": r["seg_launches"]}
+    launches["steady_graph"], seg_launches["steady_graph"] = \
+        steady_graph_phase(cfg, traj, packets, smi_line, seg_capture)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    seg_err, seg_tm = segment_phase("main_path", *seg_capture, flush=flush)
+    seg_errs.append(seg_err)
+    del flush, seg_capture
+    seconds = {"to_system": time.perf_counter() - t_start,
+               "steady_graph": time.perf_counter() - t0}
+
     # the main path's runs, each counted from 0: the slice, mgsize = 2,
-    # the full system (GBA launches no moments kernel), the command line
-    # and the checkpoint's runs
-    seconds = {"to_system": time.perf_counter() - t_start}
-    t0 = time.perf_counter()
-    launches = {"slice": r["launches"], "system": system_phase(smi_line)}
-    seconds["system_and_sessions"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    launches["slice_mg2"] = slice_mg2_phase(cfg, traj, packets)
-    seconds["slice_mg2"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gba_phase(smi_line)
-    seconds["gba_window"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    launches["cli"], cli_packets, cli_cfg = cli_phase(smi_line)
-    seconds["cli"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    launches["checkpoint"] = checkpoint_phase(cli_packets, cli_cfg)
-    seconds["checkpoint"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    remainders_phase(smi_line)
-    seconds["remainders"] = time.perf_counter() - t0
+    # the full system (GBA launches no moments kernel), the command line,
+    # the checkpoint's runs and the remainders (segment_add alone)
+    def counted(name, phase, *args):
+        sa.counter.reset()
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        seg_launches[name] = sa.counter.launches
+        return out
+    launches["system"] = counted("system_and_sessions", system_phase,
+                                 smi_line)
+    launches["slice_mg2"] = counted("slice_mg2", slice_mg2_phase, cfg, traj,
+                                    packets)
+    counted("gba_window", gba_phase, smi_line)
+    launches["cli"], cli_packets, cli_cfg = counted("cli", cli_phase,
+                                                    smi_line)
+    launches["checkpoint"] = counted("checkpoint", checkpoint_phase,
+                                     cli_packets, cli_cfg)
+    counted("remainders", remainders_phase, smi_line)
     seconds["total"] = time.perf_counter() - t_start
     emit("timing", seconds=seconds)
 
@@ -2237,7 +2511,19 @@ def main():
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": "bytes",
         "library_ms": tm["library_ms"], "cold_ms": tm["cold_ms"],
-        "bound_share": tm["bound_ms"] / tm["ms"]}]}), flush=True)
+        "bound_share": tm["bound_ms"] / tm["ms"]}, {
+        "name": "segment_add", "route": "cuda",
+        "source": "voxelslam_tpu_torch/csrc/segment_add.cu",
+        "replaces": "no Pallas kernel: XLA's scatter-add, "
+                    "voxelslam_tpu/ops/downsample.py:33",
+        "launches": sum(seg_launches.values()),
+        "launches_by_path": seg_launches,
+        "max_abs_err": max(seg_errs),
+        "ms": seg_tm["ms"], "kernel_ms": seg_tm["kernel_ms"],
+        "plain_ms": seg_tm["plain_ms"], "bound_ms": seg_tm["bound_ms"],
+        "bound_by": "bytes", "library_ms": seg_tm["library_ms"],
+        "cold_ms": seg_tm["cold_ms"],
+        "bound_share": seg_tm["bound_ms"] / seg_tm["ms"]}]}), flush=True)
 
     # last line
     print(json.dumps({"ok": True, "device": {

@@ -245,3 +245,76 @@ def test_insert_scan_fused_on_card_matches_cpu():
                                        n(getattr(la.win, f)), atol=tol)
     for (sa, va, _), (sb, vb, _) in zip(out["cpu"][1], out["cuda"][1]):
         assert torch.equal(sa, sb.cpu()) and torch.equal(va, vb.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 4, 6, 9, 18, 36])
+def test_segment_add_on_card_is_the_cpu_index_add(D):
+    """segment_add's kernel (`csrc/segment_add.cu`) on the card: one launch
+    a call, bitwise repeatable and bitwise the CPU's sequential index_add_,
+    with a third of the sources on one row and index C dropped."""
+    _card()
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    rng = np.random.default_rng(D)
+    C, N = 3000, 5000
+    idx = rng.integers(0, C + 1, N)
+    idx[::3] = 17
+    tail = (D,) if D > 1 else ()
+    buf = t(rng.normal(size=(C,) + tail))
+    val = t(rng.normal(size=(N,) + tail))
+    ti = torch.as_tensor(idx)
+    before = sa.counter.launches
+    a = sa.segment_add(buf.cuda(), ti.cuda(), val.cuda())
+    assert sa.counter.launches == before + 1
+    b = sa.segment_add(buf.cuda(), ti.cuda(), val.cuda())
+    cpu = sa.segment_add_ref(buf, ti, val)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(a), bits(b))
+    assert torch.equal(bits(a), bits(cpu))
+
+
+@pytest.mark.cuda
+def test_captured_steady_step_equals_eager_on_card():
+    """SlamPipeline with step graphs (one capture, then replays) against the
+    eager step on the card, deterministic algorithms off: every pose
+    bitwise equal; one moments launch a steady scan, counted per replay."""
+    _card()
+    from voxelslam_tpu_torch import config as C
+    from voxelslam_tpu_torch.io import simulator as sim
+    from voxelslam_tpu_torch.pipeline import SlamPipeline
+    cfg = C.SlamConfig(
+        map=C.MapConfig(capacities=(1 << 11, 1 << 12, 1 << 12),
+                        unique_max=(1024, 1024, 2048)),
+        odom=C.OdometryConfig(point_max=1024, imu_max=64),
+        lba=C.LocalBAConfig(factor_max=256))
+    traj = sim.make_trajectory(duration=2.4, speed=1.2, wobble=0.25,
+                               yaw_rate=0.3, ramp=1.2)
+    normals, dsp = sim.box_room(half_extent=(14.0, 12.0, 3.5),
+                                center=(4.0, 0.0, 1.0))
+    packets, t0 = [], 0.1
+    for k in range(20):
+        scan = sim.lidar_scan(traj, t0, t0 + 0.1, normals, dsp, n_az=96,
+                              n_el=16, noise=0.01, seed=k)
+        ts = np.arange(t0 - 0.01, t0 + 0.1 + 1e-6, 1.0 / 200.0)
+        imu = np.array([np.concatenate(traj.imu_at(x)) for x in ts])
+        packets.append((scan["points"][scan["hit"]],
+                        scan["offsets"][scan["hit"]], ts, imu[:, :3],
+                        imu[:, 3:], t0, t0 + 0.1))
+        t0 += 0.1
+    torch.use_deterministic_algorithms(False)
+    runs = []
+    for graphed in (True, False):
+        pipe = SlamPipeline(cfg, device="cuda", step_graphs=graphed)
+        mo.counter.reset()
+        steady, xs = 0, []
+        for pkt in packets:
+            steady += int(pipe.init_done)
+            pipe.process_scan(*pkt)
+            xs.append(n(pipe.x.p).copy())
+        pipe.flush()
+        runs.append((np.stack(xs), np.stack([sp.p for sp in pipe.scan_poses]),
+                     mo.counter.launches, steady, pipe))
+    (xg, pg, lg, sg, pipe), (xe, pe, le, se, _) = runs
+    assert pipe._graphs["steady_k"].graph is not None
+    assert np.array_equal(xg, xe) and np.array_equal(pg, pe)
+    assert lg == le == sg == se > 0

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Can the port's steady step run as a CUDA graph, and does it sum in a
+fixed order? Two checks on one GPU, over each steady step function
+(`_steady_megastep_k` at bench.py's batch of 4, `_steady_megastep` with
+one scan a dispatch, `_mega_accum` with lba.mgsize = 2):
+
+  1. host syncs: one dispatch, run eagerly, under
+     `torch.cuda.set_sync_debug_mode("warn")`; every call that makes the
+     host wait for the card, with its file:line (a CUDA graph cannot
+     capture one);
+  2. fixed order: the same dispatch twice more, its outputs bitwise
+     equal to the first's (with `torch.use_deterministic_algorithms` off,
+     as a user runs it); then once under a dispatch mode that runs every
+     aten op twice more on the same inputs and lists, with file:line,
+     each op whose outputs differ bitwise between the runs: where to
+     look when the outputs differ. The hand-written kernels are outside
+     the dispatcher; chip_smoke.py holds them to the CPU bitwise.
+
+Run from the repository root:  python3 tools/capture_check.py
+Prints one JSON object (and writes chiprun_out/capture_check.json); exits
+non-zero on a host sync or outputs that differ. Needs a GPU.
+"""
+
+import collections
+import dataclasses
+import json
+import os
+import sys
+import traceback
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+N_REPEAT = 2          # extra runs of each op
+PKG = "voxelslam_tpu_torch" + os.sep
+
+
+def _where():
+    """The innermost three frames of the port on the current stack."""
+    st = [f for f in traceback.extract_stack() if PKG in f.filename]
+    return " <- ".join(f"{f.filename.split(PKG)[1]}:{f.lineno}"
+                       for f in st[-3:][::-1])
+
+
+def _bits(t):
+    import torch
+    if t.dtype.is_floating_point:
+        return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                    8: torch.int64}[t.element_size()])
+    return t
+
+
+def unordered_mode():
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Repeat(TorchDispatchMode):
+        """Runs each op N_REPEAT more times on the same inputs (the
+        arguments it writes restored from copies first)."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+            self.found = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if func.is_view or "empty" in name or name in (
+                    "set_", "resize_", "detach", "lift_fresh"):
+                return func(*args, **kwargs)
+            written = [(i, a.name) for i, a in enumerate(
+                func._schema.arguments)
+                if a.alias_info is not None and a.alias_info.is_write]
+
+            def slots():
+                for i, n in written:
+                    if i < len(args):
+                        yield ("a", i), args[i]
+                    elif n in kwargs:
+                        yield ("k", n), kwargs[n]
+            saved = {key: v.clone() for key, v in slots()
+                     if isinstance(v, torch.Tensor)}
+            out = func(*args, **kwargs)
+            self.ops += 1
+            ref = [t.clone() for t in tree_flatten(out)[0]
+                   if isinstance(t, torch.Tensor)]
+            for _ in range(N_REPEAT):
+                a, k = list(args), dict(kwargs)
+                for (kind, key), v in saved.items():
+                    (a if kind == "a" else k)[key] = v.clone()
+                got = [t for t in tree_flatten(func(*a, **k))[0]
+                       if isinstance(t, torch.Tensor)]
+                if any(x.shape != y.shape
+                       or not torch.equal(_bits(x), _bits(y))
+                       for x, y in zip(ref, got)):
+                    self.found[f"{name} @ {_where()}"] += 1
+                    break
+            return out
+
+    return Repeat()
+
+
+def check_dispatch(fn, carry, inputs):
+    """Checks 1 and 2 on one call of a step function: its host syncs, its
+    outputs over three runs (bitwise equal or not), and the ops whose
+    outputs differ between runs of the op (some are harmless: a write
+    of several values to a row that is sliced away)."""
+    import torch
+    from voxelslam_tpu_torch.pipeline.graphs import leaves
+    torch.cuda.synchronize()
+    syncs = collections.Counter()
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            at = f"{os.path.relpath(filename, ROOT)}:{lineno}"
+            syncs[f"{at} ({str(message)[:80]}) <- {_where()}"] += 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            first = fn(carry, inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ref = [_bits(t) for t in leaves(first)]
+    same = all(all(torch.equal(x, _bits(y)) for x, y in
+                   zip(ref, leaves(fn(carry, inputs)))) for _ in range(2))
+    torch.cuda.synchronize()
+    mode = unordered_mode()
+    with mode:
+        fn(carry, inputs)
+    torch.cuda.synchronize()
+    return dict(host_syncs=dict(syncs), outputs_repeat_bitwise=same,
+                ops_checked=mode.ops, ops_differing=dict(mode.found))
+
+
+def run(cfg, packets, step, device="cuda"):
+    """Drive an eager pipeline to its second dispatch of `step` and check
+    that dispatch."""
+    import torch
+    from voxelslam_tpu_torch.pipeline import SlamPipeline
+    pipe = SlamPipeline(cfg, collect_clouds=(step == "steady"),
+                        device=device, step_graphs=False)
+    result, seen = {}, []
+    real = pipe._run
+
+    def checked(name, fn, carry, inputs):
+        if name == step and not result:
+            seen.append(name)
+            if len(seen) == 2:
+                tin = tuple(torch.as_tensor(a, device=pipe.device)
+                            for a in inputs)
+                result.update(check_dispatch(fn, carry, tin))
+        return real(name, fn, carry, inputs)
+    pipe._run = checked
+    for pkt in packets:
+        pipe.process_scan(*pkt)
+        if result:
+            break
+    if not result:
+        raise RuntimeError(f"no {step} dispatch after the warm-up")
+    return result
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("capture_check: needs a GPU")
+    import chip_smoke as cs
+    from voxelslam_tpu_torch.ops import moments, segment_add
+    moments.build()
+    segment_add.build()
+    cfg = cs.bench_config()
+    _, packets = cs.bench_packets(36)
+    mg2 = dataclasses.replace(cfg, lba=dataclasses.replace(cfg.lba,
+                                                           mgsize=2))
+    res = {"card": cs.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()}
+    for step, c in (("steady_k", cfg), ("steady", cfg), ("accum", mg2)):
+        res[step] = run(c, packets, step)
+    ok = all(not r["host_syncs"] and r["outputs_repeat_bitwise"]
+             for k, r in res.items() if k != "card")
+    res["ok"] = ok
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "capture_check.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

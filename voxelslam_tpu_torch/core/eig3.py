@@ -78,7 +78,8 @@ def _eigvec_for(A: torch.Tensor, lam_others: torch.Tensor) -> torch.Tensor:
 def _ortho(u: torch.Tensor) -> torch.Tensor:
     """Unit vector orthogonal to u: cross with the least-aligned axis."""
     idx = torch.argmin(torch.abs(u), dim=-1)
-    e = torch.nn.functional.one_hot(idx, 3).to(u.dtype)
+    axes = torch.arange(3, device=u.device)   # one_hot, with no host read
+    e = (idx[..., None] == axes).to(u.dtype)
     return _unit(torch.linalg.cross(u, e, dim=-1))
 
 

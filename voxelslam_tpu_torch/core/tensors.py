@@ -91,6 +91,31 @@ def searchsorted_right(arr: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return high
 
 
+def take_row(a: torch.Tensor, i, dim: int = 0) -> torch.Tensor:
+    """`a.select(dim, i)` for an int or a 0-dim integer tensor `i`. Python
+    indexing with a 0-dim tensor reads it back to the host (`.item()`), a
+    sync on the card that a CUDA graph cannot capture; a tensor index here
+    stays on the device."""
+    if torch.is_tensor(i):
+        return a.index_select(dim, i.reshape(1).long()).squeeze(dim)
+    return a.select(dim, i)
+
+
+def put_row(a: torch.Tensor, i, b, dim: int = 0) -> torch.Tensor:
+    """A copy of `a` with `a.select(dim, i)` set to `b` (a tensor, broadcast,
+    or a Python scalar); `i` an int or a 0-dim integer tensor, which stays
+    on the device (see `take_row`)."""
+    if not torch.is_tensor(i):
+        a = a.clone()
+        a[(slice(None),) * dim + (i,)] = b
+        return a
+    at = i.reshape(1).long()
+    if not torch.is_tensor(b):
+        return a.index_fill(dim, at, b)
+    row = b.to(a.dtype).expand(a.select(dim, 0).shape).unsqueeze(dim)
+    return a.index_copy(dim, at, row)
+
+
 def drop_set(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
              dim: int = 0) -> torch.Tensor:
     """XLA's `buf.at[idx].set(val, mode="drop")` for indices in [0, C]:
@@ -108,11 +133,12 @@ def drop_set(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 def drop_add(buf: torch.Tensor, idx: torch.Tensor,
              val: torch.Tensor) -> torch.Tensor:
     """XLA's `buf.at[idx].add(val, mode="drop")` along dim 0 for indices in
-    [0, C]; index C is dropped."""
-    C = buf.shape[0]
-    out = torch.cat([buf, buf.new_zeros((1,) + tuple(buf.shape[1:]))])
-    out.index_add_(0, idx, val.to(buf.dtype))
-    return out[:C]
+    [0, C]; index C is dropped. Each row adds its sources in ascending
+    source index on every device (`ops.segment_add`: the kernel on CUDA
+    tensors, `index_add_` on CPU ones), so a caller may pack columns that
+    share `idx` into one call: they sum independently."""
+    from ..ops.segment_add import segment_add
+    return segment_add(buf, idx, val.to(buf.dtype))
 
 
 class _PerWindow(torch.autograd.Function):

@@ -15,7 +15,8 @@ import torch
 
 from ..core import so3
 from ..core.state import NavState, DIM
-from ..core.tensors import associative_scan, cumsum0, mv, searchsorted_right
+from ..core.tensors import (associative_scan, cumsum0, mv,
+                             searchsorted_right, take_row)
 
 
 @dataclasses.dataclass
@@ -163,8 +164,8 @@ def propagate(state: NavState, imu_ts, gyr, acc, mask, scan_beg, scan_end,
     t_key = torch.where(pair_valid, torch.arange(M, device=dev), -1)
     li = torch.argmax(t_key)
     any_valid = torch.any(pair_valid)
-    w_last = torch.where(any_valid, w_mid[li], 0.0)
-    a_last = torch.where(any_valid, a_world[li], 0.0)
+    w_last = torch.where(any_valid, take_row(w_mid, li), 0.0)
+    a_last = torch.where(any_valid, take_row(a_world, li), 0.0)
 
     poses = ImuPoses(
         offt=torch.where(pair_valid, heads_t - scan_beg, float("inf")),

@@ -285,9 +285,10 @@ def jacobian_closed(pre: Preint, st1: NavState, st2: NavState,
 
 def cov_inv(pre: Preint) -> torch.Tensor:
     """Inverse of the preintegration covariance (+1e-12 I), f32 LU as in
-    the JAX package; hoisted out of LM loops by the callers."""
+    the JAX package; hoisted out of LM loops by the callers. `inv_ex`
+    without its error check: `inv` reads the LU's info back to the host."""
     eye = torch.eye(DIM, dtype=pre.cov.dtype, device=pre.cov.device)
-    return torch.linalg.inv(pre.cov + eye * 1e-12)
+    return torch.linalg.inv_ex(pre.cov + eye * 1e-12)[0]
 
 
 def evaluate_closed(pre: Preint, st1: NavState, st2: NavState,

@@ -150,8 +150,9 @@ def _extract_planes(cloud, mask, cfg: BtcConfig):
         inv = inv.long()
         seg = torch.where(inv >= 0, inv, U)
         w = ((mask > 0) & (inv >= 0)).to(f32)
-        n = drop_add(cloud.new_zeros((U,)), seg, w)
-        s = drop_add(cloud.new_zeros((U, 3)), seg, cloud * w[:, None])
+        ns = drop_add(cloud.new_zeros((U, 4)), seg,
+                      torch.cat([w[:, None], cloud * w[:, None]], dim=1))
+        n, s = ns[:, 0], ns[:, 1:4]
         mu = s / torch.clamp(n, min=1.0)[:, None]
         d = (cloud - mu[torch.clamp(inv, min=0)]) * w[:, None]
         S = drop_add(cloud.new_zeros((U, 3, 3)), seg,
@@ -181,9 +182,9 @@ def _extract_planes(cloud, mask, cfg: BtcConfig):
     mw = (is_plane & (minv >= 0)).to(f32) * n
 
     def clusters(seg, wts):
-        mn = drop_add(cloud.new_zeros((M,)), seg, wts)
-        mc = drop_add(cloud.new_zeros((M, 3)), seg, mu * wts[:, None])
-        mnv = drop_add(cloud.new_zeros((M, 3)), seg, nrm * wts[:, None])
+        acc = drop_add(cloud.new_zeros((M, 7)), seg, torch.cat(
+            [wts[:, None], mu * wts[:, None], nrm * wts[:, None]], dim=1))
+        mn, mc, mnv = acc[:, 0], acc[:, 1:4], acc[:, 4:7]
         centers = mc / torch.clamp(mn, min=1.0)[:, None]
         normals = mnv / torch.clamp(torch.sqrt(torch.sum(mnv * mnv, -1,
                                                          keepdim=True)),
@@ -418,9 +419,9 @@ def _projection_corners(cloud, mask, centers, normals, pvalid,
         occd = occ.clone()
         occd[:, :, 1:] |= occ[:, :, :-1]
         occd[:, :, :-1] |= occ[:, :, 1:]
-        cnt = drop_add(cloud.new_zeros((G * G,)), cell_idx, w)
-        usum = drop_add(cloud.new_zeros((G * G,)), cell_idx, u * w)
-        vsum = drop_add(cloud.new_zeros((G * G,)), cell_idx, v * w)
+        cuv = drop_add(cloud.new_zeros((G * G, 3)), cell_idx,
+                       torch.stack([w, u * w, v * w], dim=1))
+        cnt, usum, vsum = cuv[:, 0], cuv[:, 1], cuv[:, 2]
 
         # 5x5-block max of summary (reference :803-841)
         blk = (summary[:B * 5, :B * 5].reshape(B, 5, B, 5)

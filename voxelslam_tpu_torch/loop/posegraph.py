@@ -11,8 +11,9 @@ edges), and the residual
 and poses perturbed on the right, R <- R Exp(dx[0:3]), p <- p + dx[3:6].
 The JAX package differentiates the residual with `jax.jacfwd` under a
 `vmap`; here the same Jacobians are written in closed form over the edge
-batch, and the normal equations are summed with one `index_add_` of 6x6
-blocks instead of a chunked one-hot matmul. The diagonal-information
+batch, and the normal equations are summed with one fixed-order
+scatter-add of 6x6 blocks (`ops.segment_add`) instead of a chunked
+one-hot matmul. The diagonal-information
 functions are the full ones with W6 = diag(info).
 """
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core import so3
+from ..ops.segment_add import segment_add
 
 
 def edge_residual(Ri, pi, Rj, pj, rel_R, rel_p):
@@ -83,12 +85,12 @@ def assemble_pose_system_full(i_idx, j_idx, r, Ji, Jj, W6, K: int):
     blocks = torch.cat([JiT @ WJi, JiT @ WJj, JjT @ WJi, JjT @ WJj])
     idx = torch.cat([i_idx * K + i_idx, i_idx * K + j_idx,
                      j_idx * K + i_idx, j_idx * K + j_idx])
-    Hb = r.new_zeros((K * K, 6, 6)).index_add_(0, idx, blocks)
+    Hb = segment_add(r.new_zeros((K * K, 6, 6)), idx, blocks)
     H = Hb.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
     Wr = (W6 @ r[..., None])[..., 0]
     gb = torch.cat([(JiT @ Wr[..., None])[..., 0],
                     (JjT @ Wr[..., None])[..., 0]])
-    g = r.new_zeros((K, 6)).index_add_(0, torch.cat([i_idx, j_idx]), gb)
+    g = segment_add(r.new_zeros((K, 6)), torch.cat([i_idx, j_idx]), gb)
     chi = torch.einsum("er,ers,es->", r, W6, r)
     return H, g.reshape(-1), chi
 

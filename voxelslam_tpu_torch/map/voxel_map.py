@@ -45,8 +45,8 @@ from ..config import MapConfig
 from ..core import cluster as cl
 from ..core.cluster import Cluster
 from ..core.eig3 import eigh3_forward
-from ..core.tensors import (drop_add, drop_set, tmap, window_einsum,
-                            window_wsum)
+from ..core.tensors import (drop_add, drop_set, put_row, take_row, tmap,
+                            window_einsum, window_wsum)
 from ..ops import voxel_hash as vh
 from ..ops import moments as mo
 
@@ -155,14 +155,8 @@ def empty_map(cfg: MapConfig, device=None):
 
 def _set_slot(full, frame_slot, new, axis: int = 0):
     """Functional `full.at[frame_slot].set(new)` along `axis` over a
-    cluster or tensor."""
-    at = (slice(None),) * axis + (frame_slot,)
-
-    def one(a, b):
-        a = a.clone()
-        a[at] = b
-        return a
-    return tmap(one, full, new)
+    cluster or tensor (`frame_slot` an int or a 0-dim tensor)."""
+    return tmap(lambda a, b: put_row(a, frame_slot, b, axis), full, new)
 
 
 def _rot_nv(R, nv):
@@ -221,6 +215,16 @@ def insert_scan_level(lv: VoxelLevel, level_size: float, unique_max: int,
     return lv, uslots, uvalid & (us >= 0), dropped
 
 
+def _point_sums(U, seg, w, pts, nv_pt):
+    """Per-segment point count, point sum and noise record, (U,), (U, 3)
+    and (U, NV), as one drop-mode add of the packed (N, 4 + NV) rows
+    [w, w p, w nv] (the scatter matrix needs the mean first: its own add)."""
+    acc = drop_add(pts.new_zeros((U, 4 + NV)), seg,
+                   torch.cat([w[:, None], pts * w[:, None], nv_pt * w[:, None]],
+                             dim=1))
+    return acc[:, 0], acc[:, 1:4], acc[:, 4:]
+
+
 def _insert_columns(lv: VoxelLevel, frame_slot, us, inv, pts_local, nv_pt,
                     mask):
     """Dense-column insert: per-point sums into (C,)-sized columns (of
@@ -239,14 +243,11 @@ def _insert_columns(lv: VoxelLevel, frame_slot, us, inv, pts_local, nv_pt,
     pts = pts_local.reshape(-1, 3)
     seg = torch.where(ok, pslot, NC)
     w = ok.to(pts.dtype)
-    n_add = drop_add(pts.new_zeros((NC,)), seg, w)
-    sum_p = drop_add(pts.new_zeros((NC, 3)), seg, pts * w[:, None])
+    n_add, sum_p, nv_add = _point_sums(NC, seg, w, pts, nv_pt.reshape(-1, NV))
     mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
     d = (pts - mu_add[torch.clamp(pslot, min=0)]) * w[:, None]
     S_add = drop_add(pts.new_zeros((NC, 3, 3)), seg,
                      d[:, :, None] * d[:, None, :])
-    nv_add = drop_add(pts.new_zeros((NC, NV)), seg,
-                      nv_pt.reshape(-1, NV) * w[:, None])
     added = Cluster(n=n_add.reshape(lead + (C,)),
                     mu=mu_add.reshape(lead + (C, 3)),
                     S=S_add.reshape(lead + (C, 3, 3)))
@@ -277,13 +278,11 @@ def _insert_rows(lv: VoxelLevel, frame_slot, uvalid, us, inv, pts_local,
     ok = (mask > 0) & (inv >= 0)
     seg = torch.where(ok, inv, U)
     w = ok.to(pts_local.dtype)
-    n_add = drop_add(pts_local.new_zeros((U,)), seg, w)
-    sum_p = drop_add(pts_local.new_zeros((U, 3)), seg, pts_local * w[:, None])
+    n_add, sum_p, nv_add = _point_sums(U, seg, w, pts_local, nv_pt)
     mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
     d = (pts_local - mu_add[torch.clamp(inv, 0, U - 1)]) * w[:, None]
     S_add = drop_add(pts_local.new_zeros((U, 3, 3)), seg,
                      d[:, :, None] * d[:, None, :])
-    nv_add = drop_add(pts_local.new_zeros((U, NV)), seg, nv_pt * w[:, None])
 
     row_ok = uvalid & (us >= 0)
     flat = frame_slot * C + torch.clamp(torch.where(row_ok, us, 0), 0, C - 1)
@@ -373,11 +372,11 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
         S_add = (mo.unpack_sym6(acc[:, 4:10])
                  - n_add[:, None, None] * (delta[:, :, None] * delta[:, None, :]))
         S_add = torch.where(has[:, None, None], S_add, 0.0)
-        merged = cl.merge(lv.win[frame_slot], Cluster(n=n_add, mu=mu_add,
-                                                      S=S_add))
+        merged = cl.merge(tmap(lambda a: take_row(a, frame_slot), lv.win),
+                          Cluster(n=n_add, mu=mu_add, S=S_add))
         win = _set_slot(lv.win, frame_slot, merged)
         win_nv = _set_slot(lv.win_nv, frame_slot,
-                           lv.win_nv[frame_slot] + nv_add)
+                           take_row(lv.win_nv, frame_slot) + nv_add)
         # running world-frame total: the voxel-relative raw moments
         # rotate as R q, so delta_w = R delta and S_w = R S R^T exactly
         delta_w = delta @ R.T
@@ -413,13 +412,11 @@ def insert_fixed_level(lv: VoxelLevel, level_size: float, unique_max: int,
     ok = (mask > 0) & (inv >= 0)
     seg = torch.where(ok, inv, U)
     w = ok.to(pts_world.dtype)
-    n_add = drop_add(pts_world.new_zeros((U,)), seg, w)
-    sum_p = drop_add(pts_world.new_zeros((U, 3)), seg, pts_world * w[:, None])
+    n_add, sum_p, nv_add = _point_sums(U, seg, w, pts_world, nv_pt)
     mu_add = sum_p / torch.clamp(n_add, min=1.0)[:, None]
     d = (pts_world - mu_add[torch.clamp(inv, 0, U - 1)]) * w[:, None]
     S_add = drop_add(pts_world.new_zeros((U, 3, 3)), seg,
                      d[:, :, None] * d[:, None, :])
-    nv_add = drop_add(pts_world.new_zeros((U, NV)), seg, nv_pt * w[:, None])
 
     row_ok = uvalid & (us >= 0)
     su = torch.clamp(torch.where(row_ok, us, 0), 0, C - 1)
@@ -667,8 +664,9 @@ def marginalize_level(lv: VoxelLevel, cfg: MapConfig, Rs, ps, mp, win_count,
         moved = Cluster.empty((C,), device=lv.fix.n.device)
         nv_m = torch.zeros_like(lv.fix_nv)
         for i in range(mgsize):
-            moved = cl.merge(moved, cl.transform(lv.win[mp[i]], Rs[i], ps[i]))
-            nv_m = nv_m + _rot_nv(Rs[i], lv.win_nv[mp[i]])
+            moved = cl.merge(moved, cl.transform(
+                tmap(lambda a: take_row(a, mp[i]), lv.win), Rs[i], ps[i]))
+            nv_m = nv_m + _rot_nv(Rs[i], take_row(lv.win_nv, mp[i]))
         take = lv.fix.n < cfg.max_points
         folded = cl.merge(lv.fix, moved)
         fix = Cluster(n=torch.where(take, folded.n, lv.fix.n),
@@ -677,10 +675,10 @@ def marginalize_level(lv: VoxelLevel, cfg: MapConfig, Rs, ps, mp, win_count,
         fix_nv = torch.where(take[:, None], lv.fix_nv + nv_m, lv.fix_nv)
     win, win_nv, tsl = lv.win, lv.win_nv, lv.tsl
     for i in range(mgsize):
-        win = tmap(lambda a: _fill_slot(a, mp[i], 0.0), win)
-        win_nv = _fill_slot(win_nv, mp[i], 0.0)
+        win = tmap(lambda a: put_row(a, mp[i], 0.0), win)
+        win_nv = put_row(win_nv, mp[i], 0.0)
         if tsl.shape[1]:
-            tsl = _fill_slot(tsl, mp[i], C)
+            tsl = put_row(tsl, mp[i], C)
     return dataclasses.replace(lv, fix=fix, fix_nv=fix_nv, win=win,
                                win_nv=win_nv, tsl=tsl)
 
@@ -716,12 +714,6 @@ def _fold_rows(lv: VoxelLevel, cfg: MapConfig, Rs, ps, mp, mgsize: int):
         fix_nv = drop_set(fix_nv, tgt, torch.where(take[:, None],
                                                    fnv_u + nv_w, fnv_u))
     return fix, fix_nv
-
-
-def _fill_slot(a, slot, value):
-    a = a.clone()
-    a[slot] = value
-    return a
 
 
 def marginalize(levels, cfg: MapConfig, Rs, ps, mp, win_count, mgsize: int):

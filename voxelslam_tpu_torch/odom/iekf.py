@@ -4,7 +4,9 @@ voxelslam.cpp:962-1098, and the init-phase kd-tree LIO, :1102-1252).
 
 Both loops run a fixed number of trips with masked accept/freeze, so the
 result equals the JAX package's early-exiting loops without a host sync
-per iteration."""
+per iteration. Inverses are `inv_ex` without its error check: `inv`
+reads the LU's info back to the host, a sync on the card that a CUDA
+graph cannot capture."""
 
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ def point_var_body(pts: torch.Tensor, dept_err: float, beam_err: float):
     voxelslam.hpp:180-200). pts: (N, 3) body frame."""
     r = torch.linalg.vector_norm(pts, dim=-1, keepdim=True)
     d = pts / torch.clamp(r, min=1e-6)
-    ez = pts.new_tensor([0.0, 0.0, 1.0]).expand(d.shape)
-    ex = pts.new_tensor([1.0, 0.0, 0.0]).expand(d.shape)
+    eye = torch.eye(3, dtype=pts.dtype, device=pts.device)  # no host copy
+    ez = eye[2].expand(d.shape)
+    ex = eye[0].expand(d.shape)
     a = torch.where(torch.abs(d[:, 2:3]) < 0.9, ez, ex)
     t1 = torch.linalg.cross(d, a, dim=-1)
     t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True),
@@ -58,7 +61,7 @@ def _kalman_step(state: NavState, x_prop: NavState, cov_inv, HTH6, HTz6):
     Returns (sol (15,), G6 (15, 6)); G is G6 in columns 0:6, zero else."""
     H_T_H = HTH6.new_zeros((DIM, DIM))
     H_T_H[0:6, 0:6] = HTH6
-    K1 = torch.linalg.inv(H_T_H + cov_inv)
+    K1 = torch.linalg.inv_ex(H_T_H + cov_inv)[0]
     G6 = K1[:, 0:6] @ HTH6
     vec = x_prop.boxminus(state)
     sol = K1[:, 0:6] @ HTz6 + vec - G6 @ vec[0:6]
@@ -81,7 +84,7 @@ def iekf_update(state: NavState, levels, map_cfg, pts_local, var_body, mask,
     (max_iter + 1) // 2 (the JAX package's static schedule); updates are
     masked once convergence latches `stop`."""
     x_prop = state
-    cov_inv = torch.linalg.inv(state.cov)
+    cov_inv = torch.linalg.inv_ex(state.cov)[0]
     phat = so3.hat(pts_local)
     N = pts_local.shape[0]
     dev, dtype = pts_local.device, pts_local.dtype
@@ -144,7 +147,7 @@ def iekf_update_kdtree(state: NavState, ref_cloud, ref_mask, pts_local, mask,
     convergence). max_iter fixed trips; once `stop` latches, the state
     is frozen as the JAX while_loop's exit would leave it."""
     x_prop = state
-    cov_inv = torch.linalg.inv(state.cov) / prior_deweight
+    cov_inv = torch.linalg.inv_ex(state.cov)[0] / prior_deweight
     phat = so3.hat(pts_local)
     dev = pts_local.device
 

@@ -1,3 +1,3 @@
-from . import voxel_hash, downsample, knn, moments
+from . import voxel_hash, downsample, knn, moments, segment_add
 
-__all__ = ["voxel_hash", "downsample", "knn", "moments"]
+__all__ = ["voxel_hash", "downsample", "knn", "moments", "segment_add"]

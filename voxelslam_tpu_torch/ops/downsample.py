@@ -24,9 +24,7 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
     U = uvalid.numel()                      # Nw * out_max rows in all
     seg = vh.flat_index(inv, out_max)
     w = ((mask > 0) & (inv >= 0)).to(points.dtype).reshape(-1)
-    n = drop_add(points.new_zeros((U,)), seg, w)
-    s = drop_add(points.new_zeros((U, 3)), seg,
-                 points.reshape(-1, 3) * w[:, None])
+    n, s = _count_sum(U, seg, w, points.reshape(-1, 3))
     out = s / torch.clamp(n, min=1.0)[:, None]
     n = n.reshape(lead + (out_max,))
     return out.reshape(lead + (out_max, 3)), uvalid & (n > 0), n
@@ -40,9 +38,16 @@ def _segments(points, mask, voxel_size, out_max):
     inv = inv.long()
     seg = torch.where(inv >= 0, inv, out_max)
     w = ((mask > 0) & (inv >= 0)).to(points.dtype)
-    n = drop_add(points.new_zeros((out_max,)), seg, w)
-    s = drop_add(points.new_zeros((out_max, 3)), seg, points * w[:, None])
+    n, s = _count_sum(out_max, seg, w, points)
     return uvalid, seg, w, n, s
+
+
+def _count_sum(U, seg, w, points):
+    """Per-segment weight and weighted point sums, (U,) and (U, 3), as one
+    drop-mode add of the packed (N, 4) rows [w, w p]."""
+    ns = drop_add(points.new_zeros((U, 4)), seg,
+                  torch.cat([w[:, None], points * w[:, None]], dim=1))
+    return ns[:, 0], ns[:, 1:4]
 
 
 def _segment_min(seg, val, out_max, fill):

@@ -36,13 +36,24 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 
 class _Counter:
-    """Kernel launches made by `accumulate` (one per call on CUDA)."""
+    """Kernel executions of one wrapper's kernel. A launch made while the
+    current stream is being captured into a CUDA graph counts in
+    `captured`, not in `launches`: `pipeline.graphs.StepGraph` adds the
+    launches its capture recorded to `launches` at every replay, so
+    `launches` counts the kernel's runs on the card."""
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
 
     def reset(self):
         self.launches = 0
+
+    def add(self):
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 counter = _Counter()
@@ -110,21 +121,28 @@ def _nvcc() -> str:
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the moments kernel cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
 def build() -> Path:
     """Compile csrc/moments.cu into build/torch_kernels (once per source
     content) and return the library path."""
-    src = _SRC.read_bytes()
+    return nvcc_build(_SRC, "libvs_moments")
+
+
+def nvcc_build(source: Path, stem: str) -> Path:
+    """Compile one CUDA source into build/torch_kernels/{stem}_{tag}.so
+    (tag: a hash of the source and flags) unless it is there; returns the
+    library path."""
+    src = source.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libvs_moments_{tag}.so"
+    lib = BUILD_DIR / f"{stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -166,7 +184,7 @@ def launch(slots: torch.Tensor, upds: torch.Tensor, caps,
             caps_arr, stream)
     if err != 0:
         raise RuntimeError(f"moments kernel launch failed: cudaError {err}")
-    counter.launches += 1
+    counter.add()
 
 
 def accumulate(slots: torch.Tensor, upds: torch.Tensor, caps):

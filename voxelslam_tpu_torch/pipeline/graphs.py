@@ -1,0 +1,167 @@
+"""A step function of fixed shapes run as one CUDA graph replay a dispatch:
+the port's counterpart of the JAX package's donated `jax.jit` megasteps
+(`voxelslam_tpu/pipeline/odometry.py:158-163`).
+
+`StepGraph(fn, device)` wraps `fn(carry, inputs) -> (carry, extras)`,
+where `carry` is a tree (`core.tensors.tmap`'s dataclasses, tuples and
+lists) of tensors that `fn` returns updated with the same structure and
+shapes, `inputs` a tuple of tensors and `extras` a tuple of tensors. It
+owns static buffers: the carry's leaves and the inputs. A call
+
+  1. copies each carry leaf that is not already its static buffer into
+     that buffer (a caller that rebound the carry between dispatches:
+     a reset, an eviction, a loop correction, a checkpoint load), and the
+     host's numpy inputs into the static inputs (on the card through
+     pinned staging buffers, two in turn, each reused only after the event
+     of its last copy);
+  2. runs `fn` on the static buffers and copies the returned carry back
+     into them, so the state advances in place (the donation);
+  3. returns the static carry tree and the extras.
+
+On CUDA the first call runs step 2 eagerly on a side stream, which warms
+up the libraries and is that dispatch's real step, then captures step 2
+into a `torch.cuda.CUDAGraph`; every later call replays it. The extras
+then live in the graph's pool and the next replay overwrites them, as
+the static carry is overwritten: a caller that keeps either across a
+dispatch clones it. On the CPU step 2 runs eagerly each call, with the
+extras copied into buffers of their own, so the same reuse shows there.
+A failed capture or replay raises; nothing falls back to eager.
+
+Kernel launch counters (`ops.moments.counter`, `ops.segment_add.counter`)
+record a capture's launches apart; each replay adds them, so the counters
+count kernel executions.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.tensors import tmap
+from ..ops import moments, segment_add
+
+COUNTERS = (moments.counter, segment_add.counter)
+
+
+def leaves(tree) -> list:
+    out = []
+    tmap(out.append, tree)
+    return out
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def assign(dsts, srcs) -> None:
+    """dst.copy_(src) for each pair that is not one tensor already; a
+    source that shares storage with any destination is cloned first, so
+    the order of the copies cannot matter."""
+    pairs = [(d, s) for d, s in zip(dsts, srcs) if not _same(d, s)]
+    held = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    srcs = [s.clone() if s.untyped_storage().data_ptr() in held else s
+            for _, s in pairs]
+    for (d, _), s in zip(pairs, srcs):
+        d.copy_(s)
+
+
+class StepGraph:
+    """`fn(carry, inputs)` over static buffers, one CUDA graph replay a
+    call on the card (see the module docstring)."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.tree = None            # the static carry tree
+        self.static = None          # its leaves
+        self.inputs = None          # static input tensors
+        self.extras = None
+        self.graph = None
+        self.captured_launches = None
+        self.capture_s = None
+        self._staging = None
+        self._events = [None, None]
+        self._turn = 0
+
+    def __call__(self, carry, inputs):
+        """carry: the caller's carry tree; inputs: numpy arrays. Returns
+        (static carry tree, extras)."""
+        src = leaves(carry)
+        if self.tree is None:
+            self._allocate(carry, inputs)
+        if len(src) != len(self.static) or any(
+                s.shape != d.shape or s.dtype != d.dtype
+                for s, d in zip(src, self.static)):
+            raise ValueError("the carry's structure, shapes or dtypes differ "
+                             "from the captured step's")
+        assign(self.static, src)
+        self._stage(inputs)
+        if self.device.type != "cuda":
+            out = self._step()
+            if self.extras is None:
+                self.extras = tuple(torch.empty_like(e) for e in out)
+            assign(self.extras, out)
+            return self.tree, self.extras
+        if self.graph is None:
+            return self.tree, self._warm_and_capture()
+        self.graph.replay()
+        for c, n in zip(COUNTERS, self.captured_launches):
+            c.launches += n
+        return self.tree, self.extras
+
+    def _allocate(self, carry, inputs):
+        self.tree = tmap(lambda a: torch.empty_like(
+            a, memory_format=torch.contiguous_format), carry)
+        self.static = leaves(self.tree)
+        arrs = [np.asarray(a) for a in inputs]
+        self.inputs = tuple(
+            torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype))
+                        .dtype, device=self.device) for a in arrs)
+        if self.device.type == "cuda":
+            self._staging = [tuple(torch.empty(t.shape, dtype=t.dtype,
+                                               pin_memory=True)
+                                   for t in self.inputs) for _ in range(2)]
+
+    def _stage(self, inputs):
+        if self.device.type != "cuda":
+            for dst, a in zip(self.inputs, inputs):
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            return
+        k, self._turn = self._turn, 1 - self._turn
+        if self._events[k] is not None:
+            self._events[k].synchronize()     # its last copy has run
+        for host, dst, a in zip(self._staging[k], self.inputs, inputs):
+            host.numpy()[...] = a
+            dst.copy_(host, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[k] = ev
+
+    def _step(self):
+        carry, extras = self.fn(self.tree, self.inputs)
+        assign(self.static, leaves(carry))
+        return tuple(extras)
+
+    def _warm_and_capture(self):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            first = self._step()              # this dispatch's step
+        main = torch.cuda.current_stream()
+        main.wait_stream(side)
+        for e in first:
+            e.record_stream(main)
+        t0 = time.perf_counter()
+        before = [c.captured for c in COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.extras = self._step()
+        self.captured_launches = [c.captured - b
+                                  for c, b in zip(COUNTERS, before)]
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        return first

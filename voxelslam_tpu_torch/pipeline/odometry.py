@@ -41,12 +41,13 @@ from ..config import SlamConfig
 from ..core import so3
 from ..core.state import NavState, DIM
 from ..core.eig3 import eigvalsh3
-from ..core.tensors import stack, tmap
+from ..core.tensors import put_row, stack, take_row, tmap
 from ..imu import ekf, preintegration as pre
 from ..map import voxel_map as vm
 from ..ba import optimizers as opt
 from ..odom import iekf
 from ..ops.downsample import voxel_downsample
+from .graphs import StepGraph
 
 # host-side fields a carry snapshot needs besides the device tensors
 CARRY_HOST_FIELDS = ("win_count", "init_done", "jour", "session",
@@ -55,13 +56,11 @@ CARRY_HOST_FIELDS = ("win_count", "init_done", "jour", "session",
 
 
 def _np(x):
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def _set_row(a, i, b):
-    a = a.clone()
-    a[i] = b
-    return a
+    """A host copy (never a view: on the CPU a step graph's buffers are
+    overwritten in place by the next dispatch)."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)
 
 
 def _roll(a, mg):
@@ -96,14 +95,24 @@ def resolve_device(device) -> torch.device:
 
 class SlamPipeline:
     """Streaming LiDAR-inertial SLAM front end on `device` (CUDA by
-    default; raises when CUDA is absent and no device is named)."""
+    default; raises when CUDA is absent and no device is named).
+
+    With `step_graphs` (the default) every steady dispatch
+    (`_steady_megastep`, `_steady_megastep_k`, `_mega_accum`) runs
+    through a `graphs.StepGraph`: one CUDA graph replay a dispatch over
+    static carry buffers updated in place, the counterpart of the JAX
+    package's donated jits (on the CPU the same buffers, run eagerly).
+    `step_graphs=False` runs the same steps eagerly, each returning a new
+    carry, with bitwise the same results."""
 
     def __init__(self, cfg: SlamConfig, collect_clouds: bool = False,
-                 device=None):
+                 device=None, step_graphs: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         # when False, skip the per-scan device->host cloud fetch
         self.collect_clouds = collect_clouds
+        self.step_graphs = step_graphs
+        self._graphs: dict[str, StepGraph] = {}
         kw = dict(dtype=torch.float32, device=self.device)
         self.noise_meas = torch.diag(torch.tensor(
             [cfg.lba.noise_gyr] * 3 + [cfg.lba.noise_acc] * 3, **kw))
@@ -115,6 +124,19 @@ class SlamPipeline:
 
     def _t(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _run(self, name, fn, carry, inputs):
+        """fn(carry, inputs) -> (carry, extras) for numpy `inputs`: through
+        the StepGraph `name` (made at first use: its shapes come from the
+        config), or eagerly without step graphs. A caller that keeps an
+        extra across the next dispatch clones it (a replay overwrites it)."""
+        if not self.step_graphs:
+            return fn(carry, tuple(torch.as_tensor(a, device=self.device)
+                                   for a in inputs))
+        g = self._graphs.get(name)
+        if g is None:
+            g = self._graphs[name] = StepGraph(fn, self.device)
+        return g(carry, inputs)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -297,13 +319,13 @@ class SlamPipeline:
         _, _, _, p_new = self._preint_interval(imu_ts, gyr, acc, imask,
                                                last_end, scan_end,
                                                x_prop.bg, x_prop.ba)
-        preints = tmap(lambda a, b: _set_row(a, W - 2, b), preints, p_new)
+        preints = tmap(lambda a, b: put_row(a, W - 2, b), preints, p_new)
 
         st, ok, diag = iekf.iekf_update(
             x_prop, levels, cfg.map, down, var_b, dmask,
             max_iter=cfg.odom.max_iter, degrade_eig=cfg.odom.degrade_eig)
 
-        win = tmap(lambda a, b: _set_row(a, W - 1, b), win, st)
+        win = tmap(lambda a, b: put_row(a, W - 1, b), win, st)
         wld = down @ st.R.T + st.p
         levels, touched = vm.insert_scan_fused(
             levels, cfg.map, wld, down, tr, dmask, mp[W - 1], jour, st.R,
@@ -357,12 +379,30 @@ class SlamPipeline:
         return (state, levels, win, mp, preints, ring, torch.stack(downs),
                 torch.stack(dmasks), torch.stack(trs))
 
+    def _steady_fn(self, carry, inputs):
+        out = self._steady_megastep(*carry, *inputs)
+        return out[:6], out[6:]
+
+    def _steady_k_fn(self, carry, inputs):
+        out = self._steady_megastep_k(*carry, *inputs)
+        return out[:5], out[5:]
+
+    def _accum_fn(self, carry, inputs):
+        x, levels, win, mp, preints = carry
+        imu_blob, scan_blob, scal, frame_idx = inputs
+        st, levels, win, preints, *extras = self._mega_accum(
+            x, levels, win, mp, preints, imu_blob, scan_blob, scal,
+            frame_idx[0])
+        return (st, levels, win, mp, preints), extras
+
     def _mega_accum(self, state, levels, win, mp, preints, imu_blob,
-                    scan_blob, scal, frame_idx: int):
+                    scan_blob, scal, frame_idx):
         """Window-refill scan for lba.mgsize > 1: propagate + deskew +
         downsample + preintegrate + iEKF + fused insert into logical slot
-        `frame_idx` + touched refresh, with no BA (the reference optimizes
-        only once the window is full, voxelslam.cpp:1951)."""
+        `frame_idx` (an int or a 0-dim device tensor, so one step graph
+        serves every refill slot) + touched refresh, with no BA (the
+        reference optimizes only once the window is full,
+        voxelslam.cpp:1951)."""
         cfg = self.cfg
         imu_ts, gyr, acc, imask = (imu_blob[:, 0], imu_blob[:, 1:4],
                                    imu_blob[:, 4:7], imu_blob[:, 7])
@@ -376,16 +416,16 @@ class SlamPipeline:
         _, _, _, p_new = self._preint_interval(imu_ts, gyr, acc, imask,
                                                last_end, scan_end,
                                                x_prop.bg, x_prop.ba)
-        preints = tmap(lambda a, b: _set_row(a, frame_idx - 1, b), preints,
+        preints = tmap(lambda a, b: put_row(a, frame_idx - 1, b), preints,
                        p_new)
         st, ok, diag = iekf.iekf_update(
             x_prop, levels, cfg.map, down, var_b, dmask,
             max_iter=cfg.odom.max_iter, degrade_eig=cfg.odom.degrade_eig)
-        win = tmap(lambda a, b: _set_row(a, frame_idx, b), win, st)
+        win = tmap(lambda a, b: put_row(a, frame_idx, b), win, st)
         wld = down @ st.R.T + st.p
         levels, touched = vm.insert_scan_fused(
-            levels, cfg.map, wld, down, tr, dmask, mp[frame_idx], jour, st.R,
-            st.p)
+            levels, cfg.map, wld, down, tr, dmask, take_row(mp, frame_idx),
+            jour, st.R, st.p)
         levels = vm.refresh_planes(levels, cfg.map, win.R, win.p, mp,
                                    frame_idx + 1, touched=touched)
         dropped = torch.sum(torch.stack([t[2] for t in touched]))
@@ -573,7 +613,7 @@ class SlamPipeline:
         self.init_cloud, self.init_cloud_mask = cloud, cmask
 
         i = self.win_count
-        self.win = tmap(lambda a, b: _set_row(a, i, b), self.win, st)
+        self.win = tmap(lambda a, b: put_row(a, i, b), self.win, st)
         self.scan_buf[i] = _np(down)
         self.scan_mask[i] = _np(dmask)
         self.scan_tr[i] = _np(tr)
@@ -704,21 +744,21 @@ class SlamPipeline:
         if self._batch_K > 1:
             return self._process_steady_batched(imu_np, scan_np, t_beg, t_end,
                                                 last_end)
-        imu_blob, scan_blob = self._t(imu_np), self._t(scan_np)
-        scal = self._t([t_beg, t_end, last_end, self.jour,
-                        float(self._ring_fill)])
+        scal = np.array([t_beg, t_end, last_end, self.jour,
+                         float(self._ring_fill)], np.float32)
         if self.cfg.lba.mgsize > 1:
             # the refill decision needs an up-to-date win_count
             out = self._flush_pending()
             if out is not None and out.get("phase") == "reset":
                 return out
             if self.win_count < self.cfg.lba.win_size - 1:
-                return self._process_steady_accum(imu_blob, scan_blob, scal,
+                return self._process_steady_accum(imu_np, scan_np, scal,
                                                   t_end)
-        (x_out, levels, win_next, mp_new, preints, ring, down, dmask, tr) = \
-            self._steady_megastep(self.x, self.levels, self.win, self.mp,
-                                  self.preints_dev, self._stats_ring,
-                                  imu_blob, scan_blob, scal)
+        ((x_out, levels, win_next, mp_new, preints, ring),
+         (down, dmask, tr)) = self._run(
+            "steady", self._steady_fn,
+            (self.x, self.levels, self.win, self.mp, self.preints_dev,
+             self._stats_ring), (imu_np, scan_np, scal))
         self.x, self.levels, self.win, self.mp = x_out, levels, win_next, mp_new
         self.preints_dev = preints
         self._stats_ring = ring
@@ -732,8 +772,12 @@ class SlamPipeline:
         if out is not None and out.get("phase") == "reset":
             return out
         if self._ring_fill >= self._ring_K:
-            self._pending = (self._stats_ring, self._ring_fill,
-                             list(self._pend_t), down, dmask, tr)
+            # the next dispatch overwrites the ring and the clouds in place
+            cc = self.collect_clouds
+            self._pending = (self._stats_ring.clone(), self._ring_fill,
+                             list(self._pend_t), down.clone() if cc else None,
+                             dmask.clone() if cc else None,
+                             tr.clone() if cc else None)
             self._ring_fill = 0
             self._pend_t = []
         return out if out is not None else {"phase": "odom", "pending": True,
@@ -751,13 +795,14 @@ class SlamPipeline:
         q, self._scan_queue = self._scan_queue, []
         t_ends, self._pend_t = self._pend_t, []
         K = len(q)
-        imu_b = self._t(np.stack([e[0] for e in q]))
-        scan_b = self._t(np.stack([e[1] for e in q]))
-        scals = self._t([[e[2], e[3], e[4], self.jour, float(k)]
-                         for k, e in enumerate(q)])
-        (x, levels, win, mp, preints, ring, downs, dmasks, trs) = \
-            self._steady_megastep_k(self.x, self.levels, self.win, self.mp,
-                                    self.preints_dev, imu_b, scan_b, scals)
+        imu_b = np.stack([e[0] for e in q])
+        scan_b = np.stack([e[1] for e in q])
+        scals = np.array([[e[2], e[3], e[4], self.jour, float(k)]
+                          for k, e in enumerate(q)], np.float32)
+        ((x, levels, win, mp, preints), (ring, downs, dmasks, trs)) = \
+            self._run("steady_k", self._steady_k_fn,
+                      (self.x, self.levels, self.win, self.mp,
+                       self.preints_dev), (imu_b, scan_b, scals))
         self.x, self.levels, self.win, self.mp = x, levels, win, mp
         self.preints_dev = preints
         out = None
@@ -765,9 +810,11 @@ class SlamPipeline:
             out = self._emit_pending()
         if out is not None and out.get("phase") == "reset":
             return out
-        cc = self.collect_clouds
-        self._pending = (ring, K, t_ends, downs if cc else None,
-                         dmasks if cc else None, trs if cc else None)
+        cc = self.collect_clouds     # the next replay overwrites these
+        self._pending = (ring.clone(), K, t_ends,
+                         downs.clone() if cc else None,
+                         dmasks.clone() if cc else None,
+                         trs.clone() if cc else None)
         return out if out is not None else {"phase": "odom", "pending": True,
                                             "t": t_end}
 
@@ -793,14 +840,16 @@ class SlamPipeline:
                          np.stack([_np(r[2]) for r in rows]) if cc else None,
                          np.stack([_np(r[3]) for r in rows]) if cc else None)
 
-    def _process_steady_accum(self, imu_blob, scan_blob, scal, t_end):
+    def _process_steady_accum(self, imu_np, scan_np, scal, t_end):
         """Window-refill scan (lba.mgsize > 1, win_count < W-1): one
         accumulate step, its stats read at once (no BA, no emission)."""
         cfg = self.cfg
         i = self.win_count
-        (x_out, levels, win, preints, stats, down, dmask, tr) = \
-            self._mega_accum(self.x, self.levels, self.win, self.mp,
-                             self.preints_dev, imu_blob, scan_blob, scal, i)
+        ((x_out, levels, win, _, preints), (stats, down, dmask, tr)) = \
+            self._run("accum", self._accum_fn,
+                      (self.x, self.levels, self.win, self.mp,
+                       self.preints_dev),
+                      (imu_np, scan_np, scal, np.array([i], np.int64)))
         self.x, self.levels, self.win = x_out, levels, win
         self.preints_dev = preints
         self.scan_count += 1
