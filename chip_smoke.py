@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line:
   1. device   - nvidia-smi name and power limit, torch device name;
   2. build    - one nvcc a CUDA source builds the moments and the
-                segment_add kernels from csrc/ (sm_90a) while g++ builds
+                segment_add kernels from csrc/ (sm_90a) and the
+                sort-and-search yardstick from tools/ while g++ builds
                 the native descriptor store (csrc/btcdb.cpp) and the scan
                 ingest and loader (csrc/ingest.cpp, csrc/loader.cpp);
   3. kernel   - the moments kernel against its plain version at the bench
@@ -15,9 +16,18 @@ Phases, each printing one JSON line:
                 bitwise equal to the CPU's sequential index_add_ (each a
                 check that fails the run); warm- and cold-L2 times with
                 the queue full (see `time_ms`) and the HBM bound; the
-                segment_add kernel held the same way at each width the
-                port uses (a hot row, the dropped index) and at the pose
-                graph's 1,000,000 rows of 6x6 blocks;
+                segment_add kernels held the same way, and bitwise in a
+                CUDA graph replayed three times, at each width the port
+                uses (a hot row, the dropped index), 90% of the sources
+                on 4 rows, int32 indices, float64, no sources, every
+                source dropped, a GBA window's insert (8,192 and, at
+                fleet_batch 4, 32,768 points, D = 9) and the pose graph's
+                H (1,000,000 rows of 6x6 blocks) and g, with the launches
+                of a call (the plan's path: one or two) by the counter and
+                at two shapes by torch.profiler; each timed beside the
+                sort-and-search route it replaced (its sort, search,
+                kernel and whole call; tools/segment_add_sorted.cu), the
+                other path forced, the plain version and index_add_;
   4. slice    - SlamPipeline.process_scan at bench.py's configuration and
                 scene (22 warm-up + 40 steady scans, then flush) through
                 its step graphs, under deterministic algorithms: init
@@ -139,6 +149,8 @@ N_PROF = 12                     # phase steady_graph: the last steady scans
 SEG_WIDTHS = (1, 3, 4, 6, 9, 18, 36)   # segment_add: the port's widths
 SEG_ROWS = 4096                 # rows and sources of the width sweep
 SEG_POSES = 1000                # segment_add at the pose graph's K^2 rows
+SEG_GBA = (8192, 32768)         # segment_add at a GBA window's insert (C = N,
+                                # D = 9), alone and at fleet_batch 4
 N_TIMED = 100                   # calls per timed CUDA graph
 N_REPEAT = 5                    # graph replays per timing median
 FLUSH_BYTES = 128 << 20         # written between calls for cold-L2 times
@@ -280,6 +292,22 @@ def time_ms(fn):
     return times[len(times) // 2]
 
 
+def event_ms(fn, n=N_TIMED):
+    """Device ms per fn() by CUDA events around n eager calls after a
+    warm-up (the host's enqueue included where it is slower than the
+    card): for work that `time_ms` cannot queue ahead of the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def cold_ms(fn, flush):
     """Device ms per fn() with a cold L2: N_TIMED x (write the FLUSH_BYTES
     buffer, then fn) minus N_TIMED x (write the buffer), both timed as
@@ -394,73 +422,242 @@ def kernel_phase(name, slots, upds, caps, flush, **extra):
     return err, tm
 
 
-def segment_inputs(C, N, D, seed, hot=True):
+def segment_inputs(C, N, D, seed, hot="one", dtype="float32",
+                   index_dtype="int64"):
     """buf (C, D), idx (N,) in [0, C] (C is the dropped row) and val
-    (N, D) on the card; with `hot`, a third of the sources on row 7."""
+    (N, D) on the card; `hot` "one": a third of the sources on row 7,
+    "four": 90% of them on 4 rows, "dropped": every one at C, None:
+    uniform."""
     import torch
     g = torch.Generator().manual_seed(seed)
+    dtype, index_dtype = getattr(torch, dtype), getattr(torch, index_dtype)
     idx = torch.randint(0, C + 1, (N,), generator=g)
-    if hot:
+    if hot == "one":
         idx[::3] = 7
-    return (torch.randn((C, D), generator=g).cuda(), idx.cuda(),
-            torch.randn((N, D), generator=g).cuda())
+    elif hot == "dropped":
+        idx[:] = C
+    elif hot == "four":
+        rows = torch.randint(0, C, (4,), generator=g)
+        pick = torch.randint(0, 4, (N,), generator=g)
+        idx = torch.where(torch.rand(N, generator=g) < 0.9, rows[pick], idx)
+    return (torch.randn((C, D), generator=g, dtype=dtype).cuda(),
+            idx.to(index_dtype).cuda(),
+            torch.randn((N, D), generator=g, dtype=dtype).cuda())
+
+
+def segment_shapes():
+    """Phase kernel's segment_add inputs: (name, (C, N, D, seed),
+    segment_inputs options)."""
+    shapes = [(f"width_{D}", (SEG_ROWS, SEG_ROWS, D, 10 + D), {})
+              for D in SEG_WIDTHS]              # the port's widths, a hot row
+    shapes += [
+        ("hot_rows", (SEG_ROWS, SEG_ROWS, 4, 5), {"hot": "four"}),
+        ("width_4_int32", (SEG_ROWS, SEG_ROWS, 4, 6),
+         {"index_dtype": "int32"}),
+        ("width_9_float64", (SEG_ROWS, SEG_ROWS, 9, 8), {"dtype": "float64"}),
+        ("no_sources", (SEG_ROWS, 0, 4, 9), {}),
+        ("all_dropped", (SEG_ROWS, SEG_ROWS, 4, 12), {"hot": "dropped"})]
+    shapes += [(f"gba_insert_{C}", (C, C, 9, 20), {"hot": None})
+               for C in SEG_GBA]
+    shapes += [                                 # the pose graph's H and g
+        ("pose_graph_blocks", (SEG_POSES * SEG_POSES, 4 * (SEG_POSES + 9), 36,
+                               3), {"hot": None}),
+        ("pose_graph_g", (SEG_POSES, 2 * (SEG_POSES + 9), 6, 4),
+         {"hot": None}),
+        ("pose_graph_g_float64", (SEG_POSES, 2 * (SEG_POSES + 9), 6, 4),
+         {"hot": None, "dtype": "float64"})]
+    return shapes
 
 
 def check_segment(buf, idx, val):
     """segment_add against its plain version on the card: (max_abs_err,
-    scale, bitwise_repeat, bitwise_vs_cpu). Restores the launch count."""
+    scale, bitwise_repeat, bitwise_vs_cpu, bitwise in a CUDA graph
+    replayed three times, launches a call, the plan's path). Restores the
+    launch count."""
     import torch
     from voxelslam_tpu_torch.ops import segment_add as sa
     n0 = sa.counter.launches
     out = sa.segment_add(buf, idx, val)
+    per_call = sa.counter.launches - n0
     out2 = sa.segment_add(buf, idx, val)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sa.segment_add(buf, idx, val)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = sa.segment_add(buf, idx, val)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(bits(gout))
+    del graph
     sa.counter.launches = n0
     ref = sa.segment_add_ref(buf, idx, val)
-    cpu = sa.segment_add_ref(buf.cpu(), idx.cpu(), val.cpu())
+    cpu = bits(sa.segment_add_ref(buf.cpu(), idx.cpu(), val.cpu()))
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    return (err, float(ref.abs().max()), torch.equal(bits(out), bits(out2)),
-            torch.equal(bits(out), bits(cpu)))
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    pl = sa.plan(buf.shape[0], idx.shape[0], buf[0].numel(), buf.dtype,
+                 idx.element_size())
+    return (err, scale, torch.equal(bits(out), bits(out2)),
+            torch.equal(bits(out), cpu),
+            all(torch.equal(r, cpu) for r in replays), per_call, pl.path)
 
 
-def time_segment(buf, idx, val, flush):
-    """segment_add (sort, search and kernel), the kernel alone, cold-L2,
-    plain and library (`index_add_`) ms, and the bytes bound in ms."""
+_SORTED = {}
+
+
+def sorted_build():
+    """tools/segment_add_sorted.cu, the sort-and-search route's kernel
+    (a yardstick, not the port's), built like the port's kernels."""
+    from pathlib import Path
+    from voxelslam_tpu_torch.ops.moments import nvcc_build
+    return nvcc_build(Path(__file__).resolve().parent / "tools"
+                      / "segment_add_sorted.cu", "libvs_segment_add_sorted")
+
+
+def sorted_route(buf, idx, val):
+    """The sort-and-search route on these inputs, in parts: callables for
+    its stable torch.sort of idx, its torch.arange + torch.searchsorted,
+    its kernel alone, and the whole call; and the whole call's output."""
+    import ctypes
+    import torch
+    if "lib" not in _SORTED:
+        lib = ctypes.CDLL(str(sorted_build()))
+        for name in ("vs_segment_add_sorted_f32", "vs_segment_add_sorted_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64,
+                                                   ctypes.c_int,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _SORTED["lib"] = lib
+    fn = getattr(_SORTED["lib"], {torch.float32: "vs_segment_add_sorted_f32",
+                                  torch.float64: "vs_segment_add_sorted_f64"}[
+        buf.dtype])
+    C, N, D = buf.shape[0], idx.shape[0], buf[0].numel()
+    buf2 = buf.reshape(C, D).contiguous()
+    val2 = val.reshape(N, D).contiguous()
+
+    def search(keys):
+        return torch.searchsorted(keys, torch.arange(
+            C + 1, dtype=keys.dtype, device=keys.device))
+
+    def run(perm, starts, out):
+        err = fn(buf2.data_ptr(), val2.data_ptr(), perm.data_ptr(),
+                 starts.data_ptr(), out.data_ptr(), C, D,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"sorted segment_add kernel: cudaError {err}")
+        return out
+
+    def whole():
+        keys, perm = torch.sort(idx, stable=True)
+        return run(perm, search(keys), torch.empty_like(buf2))
+
+    keys, perm = torch.sort(idx, stable=True)
+    starts = search(keys)
+    out = torch.empty_like(buf2)
+    parts = {"sort": lambda: torch.sort(idx, stable=True),
+             "search": lambda: search(keys),
+             "kernel": lambda: run(perm, starts, out), "whole": whole}
+    return parts, whole()
+
+
+def kernels_per_call(fn, n=10):
+    """Device kernels a call of fn, by torch.profiler over n calls, and
+    their names."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kern) / n, sorted({e.name[:60] for e in kern})
+
+
+def time_segment(buf, idx, val, flush, zero_cmp=False):
+    """segment_add (the whole call, and its kernels alone), cold-L2, plain,
+    library (`index_add_`) ms, the other path of `plan` forced, the
+    sort-and-search route's sort, search, kernel and whole-call ms, and the
+    bytes bound in ms; with `zero_cmp`, also a zero buffer filled then
+    added to against one not read (`zero=True`)."""
     import torch
     from voxelslam_tpu_torch.ops import segment_add as sa
-    C, N = buf.shape[0], idx.shape[0]
-    buf2, val2 = buf.reshape(C, -1), val.reshape(N, -1)
-    perm, starts = sa.segments(idx, C)
+    C, N, D = buf.shape[0], idx.shape[0], buf[0].numel()
+    buf2, val2 = buf.reshape(C, D), val.reshape(N, D)
     out = torch.empty_like(buf2)
     padded = torch.cat([buf2, buf2.new_zeros((1, buf2.shape[1]))])
+    pl = sa.plan(C, N, D, buf.dtype, idx.element_size())
     n0 = sa.counter.launches
     ms = time_ms(lambda: sa.segment_add(buf, idx, val))
-    kernel = time_ms(lambda: sa.launch(buf2, val2, perm, starts, out))
+    kernel = time_ms(lambda: sa.launch(buf2, idx, val2, out))
     cold = cold_ms(lambda: sa.segment_add(buf, idx, val), flush)
+    other = (time_ms(lambda: sa.launch(buf2, idx, val2, out,
+                                       path=3 - pl.path)) if N else None)
     sa.counter.launches = n0          # timing launches are not the main path
     plain = time_ms(lambda: sa.segment_add_ref(buf, idx, val))
     library = time_ms(lambda: padded.index_add_(0, idx, val2))
+    parts, old = sorted_route(buf, idx, val)
+    torch.cuda.synchronize()
+    try:
+        sorted_ms = {f"sorted_{k}_ms": time_ms(f) for k, f in parts.items()}
+        sorted_ms["sorted_timed_by"] = "graph"
+    except RuntimeError:       # torch.sort of 4,097..8,192 keys: no graph
+        sorted_ms = {f"sorted_{k}_ms": event_ms(f) for k, f in parts.items()}
+        sorted_ms["sorted_timed_by"] = "events"
     nbytes = (val.numel() * val.element_size()
               + idx.numel() * idx.element_size()
               + 2 * buf.numel() * buf.element_size())
+    if zero_cmp:     # the caller's zero buffer: a fill, or not read at all
+        extra = dict(
+            zeros_then_add_ms=time_ms(lambda: sa.segment_add(
+                torch.zeros_like(buf), idx, val)),
+            empty_zero_ms=time_ms(lambda: sa.segment_add(
+                torch.empty_like(buf), idx, val, zero=True)))
+        sa.counter.launches = n0
+    else:
+        extra = {}
     return dict(ms=ms, kernel_ms=kernel, cold_ms=cold, plain_ms=plain,
-                library_ms=library, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                library_ms=library, **extra, other_path=3 - pl.path,
+                other_path_ms=other, **sorted_ms,
+                sorted_bitwise_equal=torch.equal(
+                    bits(old), bits(sa.segment_add(buf, idx, val))),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                plan=pl._asdict())
 
 
-def segment_phase(name, buf, idx, val, flush=None, **extra):
+def segment_phase(name, buf, idx, val, flush=None, zero_cmp=False, **extra):
     """Check (and with `flush`, time) segment_add on one input; fail the
-    run on any disagreement. Returns (max_abs_err, times)."""
-    err, scale, repeat, vs_cpu = check_segment(buf, idx, val)
+    run on any disagreement, or on launches a call other than the plan's
+    (at most two). Returns (max_abs_err, times)."""
+    err, scale, repeat, vs_cpu, graphed, per_call, path = check_segment(
+        buf, idx, val)
     within = err <= KERNEL_TOL * max(scale, 1.0)
-    tm = time_segment(buf, idx, val, flush) if flush is not None else {}
+    tm = (time_segment(buf, idx, val, flush, zero_cmp) if flush is not None
+          else {})
+    if tm:
+        tm["bound_share"] = tm["bound_ms"] / tm["ms"]
+        tm["speedup_vs_sorted"] = tm["sorted_whole_ms"] / tm["ms"]
+    ok = (within and repeat and vs_cpu and graphed and per_call == path <= 2
+          and tm.get("sorted_bitwise_equal", True))
     emit("kernel", kernel="segment_add", input=name, C=buf.shape[0],
-         N=idx.shape[0], D=buf[0].numel(), max_abs_err=err,
+         N=idx.shape[0], D=buf[0].numel(), dtype=str(buf.dtype)[6:],
+         index_dtype=str(idx.dtype)[6:], max_abs_err=err,
          max_abs_sum=scale, tol=KERNEL_TOL, bitwise_repeat=repeat,
-         bitwise_vs_cpu_index_add=vs_cpu, **tm, **extra,
-         ok=within and repeat and vs_cpu)
-    if not (within and repeat and vs_cpu):
+         bitwise_vs_cpu_index_add=vs_cpu, bitwise_in_graph=graphed,
+         path=path, launches_per_call=per_call, **tm, **extra, ok=ok)
+    if not ok:
         fail(f"segment_add disagrees with the CPU's index_add_ ({name}): "
-             f"err {err}, repeat {repeat}, bitwise vs CPU {vs_cpu}")
+             f"err {err}, repeat {repeat}, bitwise vs CPU {vs_cpu}, in a "
+             f"graph {graphed}, launches {per_call} (path {path}), sorted "
+             f"route equal {tm.get('sorted_bitwise_equal')}")
     return err, tm
 
 
@@ -2392,18 +2589,19 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from voxelslam_tpu_torch import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(mo.build), pool.submit(sa.build),
+                  pool.submit(sorted_build),
                   pool.submit(native.build, "btcdb"),
                   pool.submit(native.build, "ingest")]
-        lib, seg_lib, store, ingest = [f.result() for f in builds]
+        lib, seg_lib, sorted_lib, store, ingest = [f.result() for f in builds]
     mo._library()
     sa._library()
     native.library("btcdb")
     native.library("ingest")
     emit("build", seconds=round(time.perf_counter() - t0, 3), library=lib.name,
-         segment_add=seg_lib.name, descriptor_store=store.name,
-         ingest_loader=ingest.name)
+         segment_add=seg_lib.name, sorted_route=sorted_lib.name,
+         descriptor_store=store.name, ingest_loader=ingest.name)
 
     # 3. kernel vs plain version at the bench and default shapes
     cfg = bench_config()
@@ -2417,12 +2615,21 @@ def main():
         slots, upds = kernel_inputs(*shapes, adv, seed)
         errs.append(kernel_phase(name, slots, upds, shapes[0], flush)[0])
     seg_errs = []
-    for D in SEG_WIDTHS:               # the port's widths, a hot row
-        seg_errs.append(segment_phase(f"width_{D}", *segment_inputs(
-            SEG_ROWS, SEG_ROWS, D, 10 + D))[0])
-    seg_errs.append(segment_phase(     # the pose graph's 6x6 blocks
-        "pose_graph_blocks", *segment_inputs(
-            SEG_POSES * SEG_POSES, 4 * (SEG_POSES + 9), 36, 3, hot=False))[0])
+    for name, shape, kw in segment_shapes():
+        seg_errs.append(segment_phase(
+            name, *segment_inputs(*shape, **kw), flush=flush,
+            zero_cmp=name.startswith("pose_graph"))[0])
+    # device kernels a call by the profiler: the main path's shape (one)
+    # and a GBA batch of four windows' (path 2: two)
+    seg_prof = {}
+    for name, shape in (("downsample", (SEG_ROWS, SEG_ROWS, 4, 40)),
+                        ("gba_insert_32768", (32768, 32768, 9, 41))):
+        x = segment_inputs(*shape)
+        seg_prof[name] = kernels_per_call(lambda: sa.segment_add(*x))
+    sa.counter.reset()
+    emit("kernel", kernel="segment_add", profiled_kernels_per_call=seg_prof)
+    if seg_prof["downsample"][0] != 1 or seg_prof["gba_insert_32768"][0] > 2:
+        fail(f"segment_add launches by the profiler: {seg_prof}")
     del flush, slots, upds            # not part of the slice's peak memory
     mo.counter.reset()
 
@@ -2523,7 +2730,9 @@ def main():
         "plain_ms": seg_tm["plain_ms"], "bound_ms": seg_tm["bound_ms"],
         "bound_by": "bytes", "library_ms": seg_tm["library_ms"],
         "cold_ms": seg_tm["cold_ms"],
-        "bound_share": seg_tm["bound_ms"] / seg_tm["ms"]}]}), flush=True)
+        "bound_share": seg_tm["bound_ms"] / seg_tm["ms"],
+        "sorted_route_ms": seg_tm["sorted_whole_ms"],
+        "launches_per_call": seg_prof["downsample"][0]}]}), flush=True)
 
     # last line
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """The moments kernel's wrapper (`voxelslam_tpu_torch.ops.moments`): its
 dispatch and input checks on the CPU, the contract the CUDA kernel is held
 to (ascending-order row sums, exact-zero rows skipped), and, on a card,
-the CUDA kernel against its plain version. This file imports no
+the CUDA kernel against its plain version; and on a card the segment_add
+kernels (`ops.segment_add`) bitwise against the CPU's index_add_ at the
+port's widths and call sites' shapes, on both paths, with their launches a
+call, the zero buffer and a CUDA graph. This file imports no
 JAX, so the card tests run where JAX is absent:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -271,6 +274,131 @@ def test_segment_add_on_card_is_the_cpu_index_add(D):
     torch.cuda.synchronize()
     assert torch.equal(bits(a), bits(b))
     assert torch.equal(bits(a), bits(cpu))
+
+
+def _seg_case(name):
+    """(buf, idx, val) as numpy: `hot_rows` 90% of the sources on 4 rows;
+    `c_much_larger` the pose graph's 10^6 rows of 36 for 4,036 sources;
+    `above_threshold` a GBA batch of four windows' insert (path 2);
+    `float64`; `int32` indices; `no_sources`; index C among them."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    C, N, D = {"hot_rows": (4096, 4096, 4),
+               "c_much_larger": (10 ** 6, 4036, 36),
+               "above_threshold": (32768, 32768, 9),
+               "float64": (4096, 4096, 9), "int32": (4096, 4096, 4),
+               "no_sources": (4096, 0, 4)}[name]
+    idx = rng.integers(0, C + 1, N)
+    if name == "hot_rows":
+        hot = rng.random(N) < 0.9
+        idx[hot] = rng.choice(rng.integers(0, C, 4), hot.sum())
+    dtype = np.float64 if name == "float64" else np.float32
+    return (rng.normal(size=(C, D)).astype(dtype),
+            idx.astype(np.int32 if name == "int32" else np.int64),
+            rng.normal(size=(N, D)).astype(dtype))
+
+
+def _bits_any(x):
+    x = x.detach().cpu().contiguous()
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hot_rows", "c_much_larger",
+                                  "above_threshold", "float64", "int32",
+                                  "no_sources"])
+def test_segment_add_shapes_on_card(name):
+    """segment_add on the card at the shapes beyond the width sweep: the
+    plan's launches a call by the counter (one on path 1, two on path 2),
+    bitwise repeatable, and bitwise the CPU's sequential index_add_."""
+    _card()
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    buf, idx, val = map(torch.from_numpy, _seg_case(name))
+    pl = sa.plan(buf.shape[0], idx.shape[0], buf.shape[1], buf.dtype,
+                 idx.element_size())
+    assert pl.path == (2 if name == "above_threshold" else 1)
+    before = sa.counter.launches
+    a = sa.segment_add(buf.cuda(), idx.cuda(), val.cuda())
+    assert sa.counter.launches == before + pl.launches
+    b = sa.segment_add(buf.cuda(), idx.cuda(), val.cuda())
+    cpu = sa.segment_add_ref(buf, idx, val)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits_any(a), _bits_any(b))
+    assert torch.equal(_bits_any(a), _bits_any(cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [1, 2])
+def test_segment_add_both_paths_on_card(path):
+    """Either path forced on one input (a hot row, index C, several
+    partition chunks): one launch on path 1, two on path 2, both bitwise
+    the CPU's index_add_."""
+    _card()
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    rng = np.random.default_rng(path)
+    C, N, D = 5000, 20000, 6
+    idx = rng.integers(0, C + 1, N)
+    idx[::5] = 123
+    buf, val = t(rng.normal(size=(C, D))), t(rng.normal(size=(N, D)))
+    ti = torch.as_tensor(idx)
+    out = torch.empty((C, D), device="cuda")
+    before = sa.counter.launches
+    pl = sa.launch(buf.cuda(), ti.cuda(), val.cuda(), out, path=path)
+    assert pl.path == path and sa.counter.launches == before + path
+    if path == 2:
+        assert pl.P > 1
+    cpu = sa.segment_add_ref(buf, ti, val)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(out), bits(cpu))
+
+
+@pytest.mark.cuda
+def test_segment_add_zero_buffer_on_card():
+    """`zero=True` on the card: buf (NaN) is not read; bitwise the CPU's
+    index_add_ into zeros, one launch."""
+    _card()
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    rng = np.random.default_rng(5)
+    C, N, D = 10000, 4036, 36
+    idx = torch.as_tensor(rng.integers(0, C + 1, N))
+    val = t(rng.normal(size=(N, D)))
+    before = sa.counter.launches
+    got = sa.segment_add(torch.full((C, D), float("nan"), device="cuda"),
+                         idx.cuda(), val.cuda(), zero=True)
+    assert sa.counter.launches == before + 1
+    cpu = sa.segment_add_ref(torch.zeros(C, D), idx, val)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(got), bits(cpu))
+
+
+@pytest.mark.cuda
+def test_segment_add_in_cuda_graph_on_card():
+    """One segment_add captured in a torch.cuda.CUDAGraph (main path's
+    shape, one launch) and replayed three times: each replay bitwise the
+    CPU's index_add_; the capture counts apart from the launches."""
+    _card()
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    rng = np.random.default_rng(3)
+    C = N = 4096
+    idx = torch.as_tensor(rng.integers(0, C + 1, N)).cuda()
+    buf = t(rng.normal(size=(C, 4))).cuda()
+    val = t(rng.normal(size=(N, 4))).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sa.segment_add(buf, idx, val)
+    torch.cuda.current_stream().wait_stream(side)
+    before = (sa.counter.launches, sa.counter.captured)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sa.segment_add(buf, idx, val)
+    assert (sa.counter.launches, sa.counter.captured) == (before[0],
+                                                          before[1] + 1)
+    cpu = sa.segment_add_ref(buf.cpu(), idx.cpu(), val.cpu())
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(bits(out), bits(cpu))
 
 
 @pytest.mark.cuda

@@ -14,9 +14,10 @@ correction) and over each dispatch path (`_steady_megastep_k` at K = 4,
 on the card.
 
 segment_add is held bitwise to a sequential scatter-add in ascending source
-index (the order its CUDA kernel adds in, emulated here over the same
-sorted segments), and within a float32 tolerance to the JAX package's
-`.at[].add(mode="drop")`. Config and scene are tests/test_determinism.py's.
+index (the order its CUDA kernels add in: their schedule, emulated by
+`test_torch_segment_add.emulate` on both paths), and within a float32
+tolerance to the JAX package's `.at[].add(mode="drop")`. Config and scene
+are tests/test_determinism.py's.
 """
 
 import dataclasses
@@ -33,6 +34,8 @@ from voxelslam_tpu_torch.io import simulator as sim
 from voxelslam_tpu_torch.ops import segment_add as sa
 from voxelslam_tpu_torch.pipeline import SlamPipeline, SlamSystem
 from voxelslam_tpu_torch.pipeline.graphs import StepGraph, assign
+
+from test_torch_segment_add import emulate
 
 torch.set_num_threads(1)
 
@@ -70,18 +73,6 @@ def _sequential(buf, idx, val):
     return out
 
 
-def _kernel_emulation(buf, val, perm, starts):
-    """csrc/segment_add.cu's loop: row r adds val[perm[starts[r]:
-    starts[r + 1]]] in that order, starting from buf[r]."""
-    C = buf.shape[0]
-    out = buf.reshape(C, -1).copy()
-    v = val.reshape(val.shape[0], -1)
-    for r in range(C):
-        for j in range(starts[r], starts[r + 1]):
-            out[r] = out[r] + v[perm[j]]
-    return out.reshape(buf.shape)
-
-
 def _bits(a):
     return np.ascontiguousarray(a).view(np.int32)
 
@@ -95,9 +86,9 @@ def test_segment_add_is_the_sequential_scatter_add(D):
     for got in (sa.segment_add_ref(tb, ti, tv), sa.segment_add(tb, ti, tv),
                 drop_add(tb, ti, tv), drop_add(tb, ti.to(torch.int32), tv)):
         assert np.array_equal(_bits(got.numpy()), _bits(want))
-    perm, starts = sa.segments(ti, buf.shape[0])
-    emu = _kernel_emulation(buf, val, perm.numpy(), starts.numpy())
-    assert np.array_equal(_bits(emu), _bits(want))
+    for path in (1, 2):                 # the CUDA kernels' schedule
+        pl = sa.plan(buf.shape[0], len(idx), D, path=path)
+        assert np.array_equal(_bits(emulate(buf, idx, val, pl)), _bits(want))
     # XLA's CPU scatter may sum a row in another order: float32 rounding
     # of up to ~230 unit-normal terms on the hot row
     jx = np.asarray(jnp.asarray(buf).at[idx].add(val, mode="drop"))

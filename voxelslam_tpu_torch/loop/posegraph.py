@@ -85,12 +85,13 @@ def assemble_pose_system_full(i_idx, j_idx, r, Ji, Jj, W6, K: int):
     blocks = torch.cat([JiT @ WJi, JiT @ WJj, JjT @ WJi, JjT @ WJj])
     idx = torch.cat([i_idx * K + i_idx, i_idx * K + j_idx,
                      j_idx * K + i_idx, j_idx * K + j_idx])
-    Hb = segment_add(r.new_zeros((K * K, 6, 6)), idx, blocks)
+    Hb = segment_add(r.new_empty((K * K, 6, 6)), idx, blocks, zero=True)
     H = Hb.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
     Wr = (W6 @ r[..., None])[..., 0]
     gb = torch.cat([(JiT @ Wr[..., None])[..., 0],
                     (JjT @ Wr[..., None])[..., 0]])
-    g = segment_add(r.new_zeros((K, 6)), torch.cat([i_idx, j_idx]), gb)
+    g = segment_add(r.new_empty((K, 6)), torch.cat([i_idx, j_idx]), gb,
+                    zero=True)
     chi = torch.einsum("er,ers,es->", r, W6, r)
     return H, g.reshape(-1), chi
 
