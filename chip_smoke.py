@@ -61,6 +61,12 @@ Phases, each printing one JSON line:
      edges, submaps, the seconds of the total BA and the top-down solve,
      and the position error of the scans of every session linked to
      session 0, before and after finish(); poses finite, top-down ran;
+     the GBA's rounds and condenses as CUDA graphs (capture seconds by
+     key), and finish() again from a checkpoint taken just before it, in
+     new systems eager and graphed: seconds each, poses and GBA edges
+     bitwise the run's own; the second run splits an init-accum and a
+     dynamic-init scan's time (`InitProbe`: host syncs with file:line,
+     launches, kernels, device busy share, knn's top-k device ms);
   6. sessions - save() of the first system run's last session and its
                 reload through SlamSystem(previous_maps=[...]): floor(
                 scans / win_size) keyframes, a reloaded keyframe's BTC
@@ -72,7 +78,10 @@ Phases, each printing one JSON line:
   8. gba_window - HbaRunner at SlamSystem's widths (8,192-point
                 keyframes, GBAConfig defaults), streamed, flushed, then
                 the total BA, over 30 keyframes of tests/test_gba.py's
-                scene (as a user runs it) and twice over 20 of
+                scene (as a user runs it; each round a CUDA graph replay,
+                and again eager, bitwise equal: ms per window, capture
+                seconds, host launches and kernels a round, busy share,
+                peak memory each way) and twice over 20 of
                 bench_gba.py's synthetic corridor (under deterministic
                 algorithms): ms per window, rounds, host reads, peak
                 memory of each; kernel launches, host syncs and device
@@ -81,10 +90,12 @@ Phases, each printing one JSON line:
                 error falls below half its input (see `gba_phase` for why
                 not on the corridor); the corridor runs bitwise equal;
      then the scene's windows batched (HbaRunner(mesh=global_win_mesh(1),
-     fleet_batch=1, 2, 4)): ms per window, rounds and host reads per
-     batch, peak memory, launches and device busy share of one profiled
-     batch; under deterministic algorithms, edges and submaps within
-     tests/test_dist_gba.py's tolerances of the single-window run's; the
+     fleet_batch=1, 2, 4)), graphed and eager, bitwise equal: ms per
+     window, rounds and host reads per batch, peak memory, host launches,
+     kernels and device busy share of one profiled graphed batch; as a
+     user runs them and under deterministic algorithms, edges and submaps
+     within tests/test_dist_gba.py's tolerances of the single-window
+     run's (the single window bitwise the same either way); the
      corridor at fleet_batch 2 twice bitwise equal, and once through a
      1-rank NCCL process group (the gather on the card) bitwise equal to
      those;
@@ -980,19 +991,20 @@ def scene_keyframes(n, P, seed=3, perturb=0.02):
     return kfs, truth
 
 
-def run_gba(kfs, mesh=None, fleet_batch=None, total=True):
+def run_gba(kfs, mesh=None, fleet_batch=None, total=True, graphed=True):
     """Stream the keyframes through an HbaRunner at SlamSystem's widths
-    (its defaults; with a mesh, windows batched `fleet_batch` at a time),
-    flush, then (with `total`) the total BA; synchronised clocks.
-    `n_steps` counts the window steps (batches with a mesh) of the
-    stream, `n_windows` its windows."""
+    (its defaults; with a mesh, windows batched `fleet_batch` at a time;
+    `graphed`: its step graphs, else eager rounds), flush, then (with
+    `total`) the total BA; synchronised clocks. `n_steps` counts the
+    window steps (batches with a mesh) of the stream, `n_windows` its
+    windows; `capture_s` the seconds of each graph's capture, by key."""
     import torch
     from voxelslam_tpu_torch.config import SlamConfig
     from voxelslam_tpu_torch.gba import HbaRunner
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runner = HbaRunner(SlamConfig(), mesh=mesh, fleet_batch=fleet_batch,
-                       device="cuda")
+                       device="cuda", step_graphs=graphed)
     outs, call_ms = [], []
     t0 = time.perf_counter()
     for kf in kfs + [None]:
@@ -1012,7 +1024,14 @@ def run_gba(kfs, mesh=None, fleet_batch=None, total=True):
                 n_steps=n_steps, n_windows=n_windows,
                 stream_syncs=stream_syncs, total=total,
                 total_s=time.perf_counter() - t0,
-                peak_bytes=torch.cuda.max_memory_allocated())
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                capture_s=capture_seconds(runner))
+
+
+def capture_seconds(runner):
+    """The capture seconds of each of a runner's step graphs, by key."""
+    return {"/".join(map(str, k)): g.capture_s
+            for k, g in runner._graphs.items()}
 
 
 def window_step(runner, windows):
@@ -1032,55 +1051,77 @@ def window_step(runner, windows):
         *(runner._t(a) for a in inp), 1024))
 
 
-def profile_window(runner, step):
-    """One more window step (`window_step`), twice: under the CUDA sync
-    debug mode, which warns at every call that makes the host wait for the
-    card (the explicit reads included), and under torch.profiler: kernels
-    launched, device busy time, wall time. Each run reports its rounds
-    (`sync_rounds`, `rounds`) and windows (`windows`)."""
+def sync_sources(fn):
+    """fn() under the CUDA sync debug mode, which warns at every call that
+    makes the host wait for the card: (fn's result, {file:line of the
+    repository: calls}, most first)."""
     import warnings
     import torch
-    from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            step()
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sync_rounds = runner.window_log[-1]["rounds"]
     root = os.path.dirname(os.path.abspath(__file__))
     sources = {}
     for w in caught:
         if "called a synchronizing" in str(w.message):
             at = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
             sources[at] = sources.get(at, 0) + 1
+    return out, dict(sorted(sources.items(), key=lambda kv: -kv[1]))
+
+
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset")
+
+
+def profile_window(runner, step, host=False):
+    """One more window step (`window_step`), twice: under the CUDA sync
+    debug mode (`sync_sources`, the explicit reads included), and under
+    torch.profiler: kernels on the card, device busy time, wall time;
+    with `host`, the host's calls into the CUDA runtime that launch work
+    (kernels, graphs, copies, fills) too. Each run reports its rounds
+    (`sync_rounds`, `rounds`) and windows (`windows`)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    _, sources = sync_sources(step)
+    sync_rounds = runner.window_log[-1]["rounds"]
     torch.cuda.synchronize()
-    # device activity alone: with the host's ops recorded too, a
-    # profiled batch's trace took over half a minute to process
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # device activity alone for eager steps: with the host's ops recorded
+    # too, a profiled eager batch's trace took over half a minute to
+    # process
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches, busy_us = 0, 0.0
+    launches, busy_us, runtime = 0, 0.0, {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             launches += e.count
             dev = getattr(e, "self_device_time_total", None)
             busy_us += dev if dev is not None else getattr(
                 e, "self_cuda_time_total", 0)
+        elif e.key.startswith(HOST_LAUNCH_CALLS):
+            runtime[e.key] = runtime.get(e.key, 0) + e.count
     rounds = runner.window_log[-1]["rounds"]
-    return dict(windows=runner.window_log[-1].get("Nw", 1), rounds=rounds,
-                sync_rounds=sync_rounds,
-                host_syncs=sum(sources.values()),
-                sync_sources=dict(sorted(sources.items(),
-                                         key=lambda kv: -kv[1])[:12]),
-                explicit_reads=runner.window_log[-1]["syncs"] + 1,
-                kernel_launches=launches, launches_per_round=launches / rounds,
-                profiled_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
-                device_busy_share=busy_us / 1e6 / wall)
+    out = dict(windows=runner.window_log[-1].get("Nw", 1), rounds=rounds,
+               sync_rounds=sync_rounds,
+               host_syncs=sum(sources.values()),
+               sync_sources=dict(list(sources.items())[:12]),
+               explicit_reads=runner.window_log[-1]["syncs"] + 1,
+               kernel_launches=launches, launches_per_round=launches / rounds,
+               profiled_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / 1e6 / wall)
+    if host:
+        out.update(host_launches_per_round=sum(runtime.values()) / rounds,
+                   host_launches_by_call={k: v / rounds
+                                          for k, v in runtime.items()})
+    return out
 
 
 def gba_snapshot(runner):
@@ -1218,24 +1259,50 @@ def nccl_fleet(kfs, fleet_batch):
     return r, group
 
 
+def gba_graphs(g, e):
+    """Phase gba_window's comparison of a graphed run_gba result `g` with
+    an eager one `e` (`step_graphs=False`) of the same keyframes: ms a
+    window each, total BA seconds each (with `total`), the capture seconds
+    of each graph key, peak memory each, and whether every edge, submap,
+    round and phase is bitwise equal."""
+    return dict(
+        graphed_ms_per_window=1e3 * g["stream_s"] / g["n_windows"],
+        eager_ms_per_window=1e3 * e["stream_s"] / e["n_windows"],
+        graphed_total_ba_s=g["total_s"], eager_total_ba_s=e["total_s"],
+        graphed_call_ms=g["call_ms"], eager_call_ms=e["call_ms"],
+        capture_s=g["capture_s"], peak_mem_bytes_graphed=g["peak_bytes"],
+        peak_mem_bytes_eager=e["peak_bytes"],
+        bitwise_equal=gba_snapshot(g["runner"]) == gba_snapshot(e["runner"])
+        and g["runner"].window_log == e["runner"].window_log)
+
+
 def gba_phase(smi_line):
     """Phase gba_window: tests/test_gba.py's keyframes through the global
-    BA as a user runs it (times, one profiled window, accuracy), then
-    bench_gba.py's corridor keyframes twice under deterministic algorithms
-    (times, one profiled window, bitwise equality); then the scene's
-    windows batched at fleet_batch 1, 2 and 4 on the one-card mesh as a
-    user runs them (times, one profiled batch each), and again under
-    deterministic algorithms, where their edges and submaps are held to
-    the single-window run's; the corridor at fleet_batch 2 twice under
-    deterministic algorithms (bitwise) and once more through a 1-rank
-    NCCL group (bitwise equal to those); fails the run on any check.
+    BA as a user runs it, graphed (the default: a round, a batched round
+    and a condense one CUDA graph replay each) and eager
+    (`step_graphs=False`), bitwise equal (times, capture seconds, peak
+    memory, one profiled window each way: host launches and kernels a
+    round, device busy share; accuracy), then bench_gba.py's corridor
+    keyframes twice under deterministic algorithms (times, one profiled
+    window, bitwise equality); then the scene's windows batched at
+    fleet_batch 1, 2 and 4 on the one-card mesh as a user runs them,
+    graphed and eager, bitwise equal (times, one profiled batch each
+    way), and again under deterministic algorithms, where their edges and
+    submaps are held to the single-window run's; the corridor at
+    fleet_batch 2 twice under deterministic algorithms (bitwise) and once
+    more through a 1-rank NCCL group (bitwise equal to those); fails the
+    run on any check.
 
-    The batched runs are held to the single-window run under
-    deterministic algorithms only: as a user runs it, the map's scatter
-    adds on the card sum in no fixed order, and a near-zero Hessian entry
-    (v6 = 1/|H_ij|) then parts between any two runs, batched or not, by
-    more than tests/test_dist_gba.py's rtol of 0.3 (reported, unchecked,
-    as `against_single_window_as_a_user_runs_it`).
+    Runs are bitwise repeatable as a user runs them: since the map's
+    scatter-adds go through `ops.segment_add` (ascending source order),
+    nothing on the GBA's path sums in an order that varies run to run. A
+    batched window is not bitwise its single window's: the batched round
+    divides by each window's voxel size as a tensor, the single window by
+    a Python float, which CUDA multiplies by its reciprocal, so a point a
+    rounding away from a voxel face can fall into another voxel. So the
+    batched runs are held to the single-window run within
+    tests/test_dist_gba.py's tolerances, as a user runs them and under
+    deterministic algorithms.
 
     The corridor has no structure along its axis (x), so a keyframe's x is
     fixed by nothing there: the window BA of the JAX package on these very
@@ -1256,10 +1323,17 @@ def gba_phase(smi_line):
     lap("keyframes")
     sc = run_gba(scene)
     lap("scene")
+    sc_eager = run_gba(scene, graphed=False)
+    lap("scene_eager")
     g = sc["runner"].cfg.gba
     W = g.win_size
     s_prof = profile_window(sc["runner"], window_step(sc["runner"],
-                                                      [scene[:W]]))
+                                                      [scene[:W]]), host=True)
+    s_prof_eager = profile_window(sc_eager["runner"], window_step(
+        sc_eager["runner"], [scene[:W]]))
+    scene_graphs = gba_graphs(sc, sc_eager)
+    del sc_eager
+    sc_snap = gba_snapshot(sc["runner"])
     lap("profiles")
     torch.use_deterministic_algorithms(True)
     det = [run_gba(corridor), run_gba(corridor)]
@@ -1275,13 +1349,16 @@ def gba_phase(smi_line):
     fleet = {}
     for fb in FLEET_BATCHES:
         fr = run_gba(scene, mesh, fb, total=False)
+        fe = run_gba(scene, mesh, fb, total=False, graphed=False)
         lap("fleet")
         fleet[str(fb)] = dict(
-            fleet_summary(fr), batch_profile=profile_window(
-                fr["runner"], window_step(fr["runner"], wins[:fb])),
+            fleet_summary(fr), graphs=gba_graphs(fr, fe),
+            batch_profile=profile_window(
+                fr["runner"], window_step(fr["runner"], wins[:fb]),
+                host=True),
             against_single_window_as_a_user_runs_it=fleet_diff(
                 fr["runner"], sc["runner"]))
-        del fr
+        del fr, fe
         lap("profiles")
     torch.use_deterministic_algorithms(True)
     s_det = run_gba(scene)
@@ -1303,6 +1380,7 @@ def gba_phase(smi_line):
     s_out, s_checks = gba_summary(sc, scene, s_truth)
     c_out, c_checks = gba_summary(det[0], corridor, c_truth)
     checks = {
+        "scene_graphed_bitwise_equal_to_eager": scene_graphs["bitwise_equal"],
         "scene_windows": s_checks["windows"], "scene_finite": s_checks["finite"],
         "scene_r1_below_r0_every_window":
             s_checks["r1_below_r0_every_window"],
@@ -1320,7 +1398,14 @@ def gba_phase(smi_line):
         "nccl_fleet_bitwise_equal_to_fleet_batch_2":
             gba_snapshot(nccl["runner"]) == gba_snapshot(cdet[0]["runner"]),
     }
+    checks["scene_deterministic_bitwise_equal_to_user_run"] = (
+        gba_snapshot(s_det["runner"]) == sc_snap)
     for fb, f in fleet.items():
+        checks[f"scene_fleet_batch_{fb}_graphed_bitwise_equal_to_eager"] = (
+            f["graphs"]["bitwise_equal"])
+        checks[f"scene_fleet_batch_{fb}_matches_single_window_as_a_user_"
+               "runs_it"] = (f["against_single_window_as_a_user_runs_it"]
+                             ["within_tolerance"])
         checks[f"scene_fleet_batch_{fb}_windows"] = (
             f["windows"] == s_out["windows"])
         checks[f"scene_fleet_batch_{fb}_matches_single_window"] = (
@@ -1330,7 +1415,8 @@ def gba_phase(smi_line):
                 "8192, unique_max 4096, factor_max 1024 (total BA 2048), "
                 "GBAConfig()", points=GBA_P,
          scene=dict(s_out, source="tests/test_gba.py make_keyframes",
-                    deterministic_algorithms=False, window_profile=s_prof),
+                    deterministic_algorithms=False, window_profile=s_prof,
+                    window_profile_eager=s_prof_eager, graphs=scene_graphs),
          corridor=dict(c_out, source="bench_gba.py make_keyframes",
                        deterministic_algorithms=True,
                        run2_ms_per_window=1e3 * det[1]["stream_s"]
@@ -1411,15 +1497,113 @@ def _snapshot(sysm, xs, corr_ks):
         gba=gba_snapshot(sysm.gba), corr_ks=list(corr_ks))
 
 
+class InitProbe:
+    """Splits the time of init scans in a system run: the first scan that
+    accumulates the init window (`init_accum`) and the first dynamic init
+    (the scan that fills the window and runs the init rounds), each under
+    the CUDA sync debug mode (`sync_sources`), and the next such scan each
+    under torch.profiler. An init_accum scan (about 4,300 launches) with
+    the host's ops (`profile_scans`: host launches, kernels, device busy
+    share, top kernels), `ops.knn`'s selection (`_smallest_k`, the
+    int64-key top-k) and its whole `knn` calls as profiler ranges, so
+    their device ms show apart; a dynamic init (over 300,000 launches,
+    whose host-side trace takes minutes to process) with the card's
+    activity alone (`profile_device`). Both report the device ms of the
+    kernels named top-k."""
+
+    def __init__(self):
+        self.found = {}
+
+    def kind(self, sysm):
+        o = sysm.odom
+        if o.init_done or o._gravity is None:
+            return None
+        return ("dynamic_init" if o.win_count == o.cfg.lba.win_size - 1
+                else "init_accum")
+
+    def __call__(self, sysm, pkt):
+        kind = self.kind(sysm)
+        rec = self.found.setdefault(kind, {}) if kind else None
+        if rec is None or "profile" in rec:
+            return sysm.process_scan(*pkt)
+        if "host_syncs" not in rec:
+            out, src = sync_sources(lambda: sysm.process_scan(*pkt))
+            rec.update(host_syncs=sum(src.values()),
+                       sync_sources=dict(list(src.items())[:15]),
+                       sync_scan_phase=out.get("phase"))
+            return out
+        outs = []
+
+        class Recorded:                 # keeps what process_scan returned
+            def process_scan(self, *a):
+                outs.append(sysm.process_scan(*a))
+                return outs[-1]
+        if kind == "dynamic_init":
+            rec["profile"] = profile_device(Recorded(), pkt)
+            rec["profile_scan_phase"] = outs[0].get("phase")
+            return outs[0]
+        import torch
+        from voxelslam_tpu_torch.ops import knn
+        real = (knn._smallest_k, knn.knn)
+
+        def ranged(fn, name):
+            def call(*a, **kw):
+                with torch.profiler.record_function(f"stage:{name}"):
+                    return fn(*a, **kw)
+            return call
+        knn._smallest_k = ranged(real[0], "knn_topk")
+        knn.knn = ranged(real[1], "knn")
+        try:
+            summary, kernels = profile_scans(Recorded(), [pkt])
+        finally:
+            knn._smallest_k, knn.knn = real
+        rec["profile"] = dict(summary, topk_kernels_device_ms=sum(
+            us for name, _, us in kernels if "topk" in name.lower()) / 1e3)
+        rec["profile_scan_phase"] = outs[0].get("phase")
+        return outs[0]
+
+
+def profile_device(pipe, pkt):
+    """pipe.process_scan(*pkt) under torch.profiler with the card's
+    activity alone: wall ms, kernels, device busy ms and share, the device
+    ms of the kernels named top-k, and the kernels that take the most
+    device time."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.process_scan(*pkt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            dev = getattr(e, "self_device_time_total", None)
+            kernels.append((e.key, e.count, dev if dev is not None else
+                            getattr(e, "self_cuda_time_total", 0)))
+    kernels.sort(key=lambda k: -k[2])
+    busy_us = sum(k[2] for k in kernels)
+    return dict(wall_ms=1e3 * wall, device_kernels=sum(k[1] for k in kernels),
+                device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / wall,
+                topk_kernels_device_ms=sum(
+                    k[2] for k in kernels if "topk" in k[0].lower()) / 1e3,
+                top_kernels=[{"name": k[0][:120], "calls": k[1],
+                              "device_ms": k[2] / 1e3} for k in kernels[:12]])
+
+
 def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
-               traj=None, savepath=None):
+               traj=None, savepath=None, probe=None, finish_ckpt=None):
     """Drive SlamSystem.process_scan (loop closure and GBA on) over the
     packets, or the first `stop` of them; with `times`, clock the loop
-    stages and every call. The returned `snap` is taken after the last
-    scan, or `tail` scans past the first correction when `tail` is set.
-    With `traj` (the ground truth) the run ends with finish(), and the
+    stages and every call; with `probe` (an InitProbe) each scan goes
+    through it. The returned `snap` is taken after the last scan, or
+    `tail` scans past the first correction when `tail` is set. With
+    `traj` (the ground truth) the run ends with finish(), and the
     position errors of the scans of the sessions linked to session 0 are
-    taken before and after it."""
+    taken before and after it; with `finish_ckpt` a checkpoint of the
+    system is written there just before finish()."""
     import numpy as np
     import torch
     from voxelslam_tpu_torch.ops import moments as mo
@@ -1441,7 +1625,8 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
             n_kf = sum(len(s) for s in lp.keyframes)
             n_steady += int(sysm.odom.init_done)
             t0 = time.perf_counter()
-            out = sysm.process_scan(*packets[k])
+            out = (probe(sysm, packets[k]) if probe is not None
+                   else sysm.process_scan(*packets[k]))
             torch.cuda.synchronize()
             call_s.append(time.perf_counter() - t0)
             corr = bool(out.get("loop_correction"))
@@ -1459,6 +1644,8 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
         launches = mo.counter.launches
         if snap is None:
             snap = _snapshot(sysm, xs, corr_ks)
+        if finish_ckpt is not None:
+            sysm.save_checkpoint(finish_ckpt)
         fin = finish_system(sysm, traj) if traj is not None else None
     poses = sysm.odom.scan_poses
     steady = [s for s, ph, kf in zip(call_s, phases, kf_scan)
@@ -1513,10 +1700,35 @@ def finish_system(sysm, traj):
     finish_s = time.perf_counter() - t0
     after = np.linalg.norm(np.stack([sp.p for sp in sps]) - truth, axis=1)
     return dict(finish_s=finish_s, linked_sessions=linked, scans=len(sps),
+                poses=finished_poses(sysm),
                 err_before_mean_m=float(before.mean()),
                 err_before_max_m=float(before.max()),
                 err_after_mean_m=float(after.mean()),
                 err_after_max_m=float(after.max()))
+
+
+def finished_poses(sysm):
+    """Every session's scan poses and the GBA's edges after finish(), as
+    bytes."""
+    return ([(sp.R.tobytes(), sp.p.tobytes()) for ss in sysm.loop.scan_poses
+             for sp in ss], gba_snapshot(sysm.gba))
+
+
+def finish_from(cfg, ckpt, graphed):
+    """A new SlamSystem (`step_graphs=graphed`) restored from a checkpoint
+    taken just before finish(), then finish() on a synchronised clock:
+    (seconds, finished_poses, capture seconds of the GBA's graphs)."""
+    import torch
+    from voxelslam_tpu_torch.pipeline.system import SlamSystem
+    sysm = SlamSystem(cfg, enable_loop=True, enable_gba=True, device="cuda",
+                      step_graphs=graphed)
+    sysm.load_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysm.finish()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, finished_poses(sysm),
+            capture_seconds(sysm.gba))
 
 
 def same_snapshot(a, b):
@@ -1603,10 +1815,23 @@ def system_phase(smi_line):
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_sessions_",
                                      dir=build) as savepath:
+        ckpt = os.path.join(savepath, "before_finish.ckpt")
         r = run_system(cfg, packets, gt, tail=SYS_TAIL, times=times,
-                       traj=traj, savepath=savepath)
+                       traj=traj, savepath=savepath, finish_ckpt=ckpt)
+        gba_capture = capture_seconds(r["sysm"].gba)
         sessions_phase(r.pop("sysm"), cfg)
-    r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"])
+        # finish() again from the state just before it, each in a new
+        # system (its graphs captured anew): eager, then graphed
+        fin_poses = r["finish"].pop("poses")
+        again = [finish_from(cfg, ckpt, False), finish_from(cfg, ckpt, True)]
+    finish_cmp = dict(
+        graphed_s=r["finish"]["finish_s"], eager_s=again[0][0],
+        graphed_again_s=again[1][0], capture_s=again[1][2],
+        bitwise_equal=[a[1] == fin_poses for a in again])
+    del again
+    # the second run (bitwise against the first) splits init scans' time
+    probe = InitProbe()
+    r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"], probe=probe)
     identical = same_snapshot(r["snap"], r2["snap"])
     names = r["phases"]
     cross0 = [e for e in r["edges"] if e[0] != e[1] and 0 in (e[0], e[1])]
@@ -1621,6 +1846,10 @@ def system_phase(smi_line):
         "one_launch_per_steady_scan": r["launches"] == r["n_steady"] > 0,
         "second_run_bitwise_equal": identical,
         "top_down_ran": len(times.get("top_down", [])) == 1,
+        "finish_graphed_bitwise_equal_to_eager":
+            all(finish_cmp["bitwise_equal"]),
+        "init_scans_profiled": all("profile" in probe.found.get(k, {})
+                                   for k in ("init_accum", "dynamic_init")),
     }
     n_kf = max(r["n_keyframes"], 1)
     stage = {}
@@ -1652,7 +1881,9 @@ def system_phase(smi_line):
          init_failed=names.count("init_failed"), final_session=r["session"],
          kernel_launches=r["launches"], steady_calls=r["n_steady"],
          peak_mem_bytes=r["peak_bytes"], stages=stage,
-         gba=r["gba"], finish=r["finish"], second_run_scans=r2["n"],
+         gba=dict(r["gba"], capture_s=gba_capture),
+         finish=dict(r["finish"], graphed_against_eager=finish_cmp),
+         init_scans=probe.found, second_run_scans=r2["n"],
          run2_s=r2["run_s"], run2_gba=r2["gba"], checks=checks)
     if not all(checks.values()):
         fail(f"system checks failed: {checks}")

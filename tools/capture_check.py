@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Can the port's steady step run as a CUDA graph, and does it sum in a
+"""Can the port's step functions run as CUDA graphs, and do they sum in a
 fixed order? Two checks on one GPU, over each steady step function
 (`_steady_megastep_k` at bench.py's batch of 4, `_steady_megastep` with
-one scan a dispatch, `_mega_accum` with lba.mgsize = 2):
+one scan a dispatch, `_mega_accum` with lba.mgsize = 2) and each function
+the global BA runs as a graph (`HbaRunner`'s round at the coarse and the
+fine phase, the batched round over two windows, the window condense and a
+batch's edges and condense), at SlamSystem's GBA widths on
+tests/test_gba.py's scene:
 
   1. host syncs: one dispatch, run eagerly, under
      `torch.cuda.set_sync_debug_mode("warn")`; every call that makes the
@@ -166,6 +170,53 @@ def run(cfg, packets, step, device="cuda"):
     return result
 
 
+def run_gba():
+    """Check one call of each function the global BA captures (see the
+    module docstring), eagerly, at `HbaRunner`'s default widths."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from voxelslam_tpu_torch.config import SlamConfig
+    from voxelslam_tpu_torch.gba import HbaRunner
+    from voxelslam_tpu_torch.parallel.dist_gba import (condense_window,
+                                                       make_window_fleet)
+    r = HbaRunner(SlamConfig(), device="cuda", step_graphs=False)
+    W, P = r.cfg.gba.win_size, r.kf_point_max
+    kfs, _ = cs.scene_keyframes(W + r.cfg.gba.stride, P)
+
+    def window(w):
+        return tuple(torch.as_tensor(np.stack(x), dtype=torch.float32,
+                                     device="cuda") for x in (
+            [k.cloud for k in w], [k.mask for k in w], [k.R0 for k in w],
+            [k.p0 for k in w], np.ones(len(w))))
+    clouds, masks, Rs, ps, wmask = window(kfs[:W])
+    res = {}
+    for fine in (False, True):
+        res["gba_round_" + ("fine" if fine else "coarse")] = check_dispatch(
+            r._round_fn(W, 1024, fine), (Rs, ps), (clouds, masks, wmask))
+    two = [window(kfs[s:s + W]) for s in (0, r.cfg.gba.stride)]
+    cb, mb, Rb, pb, wb = (torch.stack(x) for x in zip(*two))
+    z = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    carry = (Rb, pb, Rb.new_zeros((2, 6 * W, 6 * W)), Rb.new_zeros((2,)),
+             Rb.new_zeros((2,)), z, z)
+    res["gba_batched_round"] = check_dispatch(r._batch_round_fn(W, 1024),
+                                              carry, (cb, mb, wb))
+    vs = r.cfg.map.voxel_size / 8.0
+    res["gba_condense"] = check_dispatch(
+        lambda c, x: (c, condense_window(*x, vs, P)), (),
+        (clouds, masks, Rs, ps))
+    seen = {}
+
+    def run(fn, *inputs):
+        seen.update(fn=fn, inputs=inputs)
+        return fn(*inputs)
+    make_window_fleet(None, lambda *a: r._batch_step(*a, 1024), W, vs, P,
+                      run=run)(cb, mb, Rb, pb, wb)
+    res["gba_batch_outputs"] = check_dispatch(
+        lambda c, x: (c, seen["fn"](*x)), (), seen["inputs"])
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -184,6 +235,7 @@ def main():
         timeout=60).stdout.strip()}
     for step, c in (("steady_k", cfg), ("steady", cfg), ("accum", mg2)):
         res[step] = run(c, packets, step)
+    res.update(run_gba())
     ok = all(not r["host_syncs"] and r["outputs_repeat_bitwise"]
              for k, r in res.items() if k != "card")
     res["ok"] = ok

@@ -23,6 +23,20 @@ dense-column insert (`insert_scan_level`, not the fused moments kernel,
 as in the JAX package), refits its planes, harvests the factors and runs
 a 3-iteration `lm_lidar`.
 
+With `step_graphs` (the default) every round, batched round and window
+condense is one CUDA graph replay (`pipeline.graphs.StepGraph`, in one
+memory pool a runner), the counterpart of the JAX runner's jit caches
+(`_get_step`, `_get_fleet`, `_get_condense`): a window's two rounds, the
+coarse and the fine phase's, are a graph each, with the phase's voxel size
+and gates as the eager round's Python floats, so a replay is bitwise the
+eager round; the window's inputs are staged once for each. A replay
+overwrites its outputs, so what a window, batch or condense returns is a
+copy. The total BA's windows go through the same graphs, keyed by their
+width: a capture costs about one and a half eager rounds of host time and
+a replay a tenth of one, so a phase pays for its capture from its third
+round on (PERF.md §6). `step_graphs=False` runs the same rounds eagerly.
+On the CPU the graphs' buffer logic runs with the steps eager.
+
 The dispatch-ahead order of the JAX package is kept: a window's edges
 appear when the next window is added, its submap one window later, and
 `add_keyframe`/`drain` return the same dicts. Its outputs are read with
@@ -53,6 +67,7 @@ from ..map import voxel_map as vm
 from ..ba import optimizers as opt
 from ..parallel.dist_gba import (all_pairs_edges, condense_window,
                                  make_window_fleet)
+from ..pipeline.graphs import StepGraph
 from ..pipeline.loop import Keyframe, LoopEdge
 from ..pipeline.odometry import resolve_device
 
@@ -67,13 +82,17 @@ class HbaRunner:
     batched `fleet_batch` at a time (default: the mesh size) and split over
     its ranks. Without one each window runs as it completes.
 
+    step_graphs: run rounds, batched rounds and condenses as step graphs
+    (see the module docstring; `_graphs` holds them by key).
+
     `host_syncs` counts the device-to-host reads; `window_log` holds one
     dict per window step or batch (padded width, windows `Nw` of a batch,
     rounds, the phase after each round, host syncs)."""
 
     def __init__(self, cfg: SlamConfig, kf_point_max: int = 8192,
                  capacity: int = 1 << 13, unique_max: int = 4096,
-                 mesh=None, fleet_batch: int | None = None, device=None):
+                 mesh=None, fleet_batch: int | None = None, device=None,
+                 step_graphs: bool = True):
         if fleet_batch is not None and mesh is None:
             raise ValueError("fleet_batch batches windows over a mesh; for "
                              "one card pass "
@@ -98,6 +117,9 @@ class HbaRunner:
         self._fleet_inflight = None  # (queue, fleet outputs)
         self.host_syncs = 0
         self.window_log: list[dict] = []
+        self.step_graphs = step_graphs
+        self._graphs: dict[tuple, StepGraph] = {}
+        self._pool = None            # the graphs' memory pool (CUDA)
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
@@ -113,6 +135,21 @@ class HbaRunner:
             out.append(flat[o:o + x.numel()].numpy().reshape(x.shape))
             o += x.numel()
         return out
+
+    def _graph(self, key, make):
+        """The step function `make()` builds, called as a StepGraph is
+        (carry, inputs or None) -> (carry, extras): with step graphs, this
+        runner's graph `key`, made at first use (captured at its first
+        call on the card) in the runner's memory pool; else eager."""
+        if not self.step_graphs:
+            return _Eager(make())
+        g = self._graphs.get(key)
+        if g is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[key] = StepGraph(make(), self.device,
+                                              pool=self._pool)
+        return g
 
     # -- window step --------------------------------------------------------
 
@@ -161,60 +198,76 @@ class HbaRunner:
                                      thr, clouds, masks, Rs, ps, wmask)
         return opt.lm_lidar(Rs, ps, factors, wmask, max_iter=3)
 
+    def _round_fn(self, W: int, factor_max: int, fine: bool):
+        """One round of the window step at the coarse or the fine phase's
+        voxel size and gates (Python floats): (Rs, ps), (clouds, masks,
+        wmask) -> (Rs, ps), (H, r0, r1, conv), conv the round's |r0-r1|/r0
+        < 5% on the device."""
+        coarse_cfg, fine_cfg = self._map_cfgs(W)
+        g = self.cfg.gba
+        gates = ((fine_cfg.voxel_size, fine_cfg.min_eigen_value,
+                  fine_cfg.plane_thr[0]) if fine else
+                 (g.voxel_size, g.min_eigen_value, g.eigen_value_thr))
+
+        def rnd(carry, inputs):
+            clouds, masks, wmask = inputs
+            Rs, ps, H, r0, r1, _ = self._build_and_lm(
+                coarse_cfg, factor_max, *gates, clouds, masks, *carry, wmask)
+            rel = torch.abs(r0 - r1) / torch.clamp(r0, min=1e-12)
+            return (Rs, ps), (H, r0, r1, rel < CONV_THR)
+        return rnd
+
+    def _get_step(self, W: int, factor_max: int, fine: bool):
+        """The window step's round at width W and the coarse or the fine
+        phase (`_graph`): the counterpart of the JAX runner's jitted step,
+        whose one while_loop body serves both phases."""
+        return self._graph(("step", W, factor_max, fine),
+                           lambda: self._round_fn(W, factor_max, fine))
+
     def _window_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
         """Convergence-driven coarse->fine window BA (reference
         HBA_add_edge, voxelslam.cpp:2871-2917): coarse GBA voxel params
         until the first round with |r0-r1|/r0 < 5%, then the odometry map
         params until the second or `GBAConfig.total_max_iter` rounds.
-        Returns the device tensors (Rs, ps, H, r0 of the first round, r1
-        of the last)."""
+        Returns device tensors (Rs, ps, H, r0 of the first round, r1 of
+        the last) that no later round overwrites."""
         W = clouds.shape[0]
-        coarse_cfg, fine_cfg = self._map_cfgs(W)
-        g = self.cfg.gba
-        total_iter = max(int(g.total_max_iter), 2)
+        total_iter = max(int(self.cfg.gba.total_max_iter), 2)
+        inputs = (clouds, masks, wmask)
         syncs0 = self.host_syncs
         it, phase, phases = 0, 0, []
-        r0_first = H = r1 = None
+        carry, r0_first, rounds = (Rs, ps), None, {}
         while it < total_iter and phase < 2:
             fine = phase > 0
-            vox = fine_cfg.voxel_size if fine else g.voxel_size
-            min_eig = (fine_cfg.min_eigen_value if fine
-                       else g.min_eigen_value)
-            thr = fine_cfg.plane_thr[0] if fine else g.eigen_value_thr
-            Rs, ps, H, r0, r1, _ = self._build_and_lm(
-                coarse_cfg, factor_max, vox, min_eig, thr, clouds, masks, Rs,
-                ps, wmask)
-            rel = torch.abs(r0 - r1) / torch.clamp(r0, min=1e-12)
-            conv = bool(rel < CONV_THR)          # the round's one host read
+            first = fine not in rounds      # stage the inputs once a phase
+            if first:
+                rounds[fine] = self._get_step(W, factor_max, fine)
+            carry, (H, r0, r1, conv) = rounds[fine](
+                carry, inputs if first else None)
+            if it == 0:
+                r0_first = r0.clone()        # the next round overwrites r0
+            conv = bool(conv)                # the round's one host read
             self.host_syncs += 1
             phase += int(conv)
             phases.append(phase)
-            if it == 0:
-                r0_first = r0
             it += 1
         self.window_log.append(dict(W=W, rounds=it, phases=phases,
                                     syncs=self.host_syncs - syncs0))
-        return Rs, ps, H, r0_first, r1
+        return tuple(x.clone() for x in carry + (H,)) + (r0_first,
+                                                          r1.clone())
 
-    def _batch_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
-        """The window step over a batch with a leading window axis (clouds
-        (Nw, W, P, 3), ...): one batched round a trip, each window at its
-        own phase's voxel size and gates, until every window has stopped
-        (`total_max_iter` rounds or its second convergence). A stopped
-        window's carry is frozen. The host reads every window's phase and
-        round count in one copy a round. Returns the device tensors (Rs,
-        ps, H, r0 of the first round, r1 of the last), each (Nw, ...)."""
-        Nw, W = clouds.shape[0], clouds.shape[1]
+    def _batch_round_fn(self, W: int, factor_max: int):
+        """One batched round: every window at its own phase's voxel size
+        and gates ((Nw,) tensors), a stopped window's carry frozen; carry
+        (Rs, ps, H, r0 of the first round, r1, phase, rounds), inputs
+        (clouds, masks, wmask); no extras."""
         coarse_cfg, fine_cfg = self._map_cfgs(W)
         g = self.cfg.gba
         total_iter = max(int(g.total_max_iter), 2)
-        syncs0 = self.host_syncs
-        it = torch.zeros((Nw,), dtype=torch.int32, device=self.device)
-        phase = torch.zeros_like(it)
-        H = Rs.new_zeros((Nw, 6 * W, 6 * W))
-        r0_first, r1 = Rs.new_zeros((Nw,)), Rs.new_zeros((Nw,))
-        phases, live = [], True          # every window runs its first round
-        while live:
+
+        def rnd(carry, inputs):
+            Rs, ps, H, r0_first, r1, phase, it = carry
+            clouds, masks, wmask = inputs
             fine = phase > 0
             vox = torch.where(fine, fine_cfg.voxel_size, g.voxel_size)
             min_eig = torch.where(fine, fine_cfg.min_eigen_value,
@@ -233,13 +286,47 @@ class HbaRunner:
             phase = torch.where(run, phase + (rel < CONV_THR).to(torch.int32),
                                 phase)
             it = torch.where(run, it + 1, it)
-            ph, its = self._fetch(phase, it)     # the round's one host read
+            return (Rs, ps, H, r0_first, r1, phase, it), ()
+        return rnd
+
+    def _batch_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
+        """The window step over a batch with a leading window axis (clouds
+        (Nw, W, P, 3), ...): one batched round a trip (`_batch_round_fn`,
+        a step graph a (Nw, W, factor_max)), each window at its own phase,
+        until every window has stopped (`total_max_iter` rounds or its
+        second convergence). The host reads every window's phase and round
+        count in one copy a round. Returns the device tensors (Rs, ps, H,
+        r0 of the first round, r1 of the last), each (Nw, ...); with step
+        graphs they are the graph's carry, which its next batch
+        overwrites."""
+        Nw, W = clouds.shape[0], clouds.shape[1]
+        total_iter = max(int(self.cfg.gba.total_max_iter), 2)
+        rnd = self._graph(("batch", Nw, W, factor_max),
+                          lambda: self._batch_round_fn(W, factor_max))
+        syncs0 = self.host_syncs
+        it = torch.zeros((Nw,), dtype=torch.int32, device=self.device)
+        carry = (Rs, ps, Rs.new_zeros((Nw, 6 * W, 6 * W)),
+                 Rs.new_zeros((Nw,)), Rs.new_zeros((Nw,)),
+                 torch.zeros_like(it), it)
+        inputs = (clouds, masks, wmask)
+        phases, live = [], True          # every window runs its first round
+        while live:
+            carry, _ = rnd(carry, None if phases else inputs)
+            ph, its = self._fetch(*carry[5:])    # the round's one host read
             phases.append(ph.astype(int).tolist())
             live = bool(np.any((its < total_iter) & (ph < 2)))
         self.window_log.append(dict(W=W, Nw=Nw, rounds=len(phases),
                                     phases=phases,
                                     syncs=self.host_syncs - syncs0))
-        return Rs, ps, H, r0_first, r1
+        return carry[:5]
+
+    def _outputs(self, fn, *inputs):
+        """A batch's edges and condensed submaps (`make_window_fleet`'s
+        `run`): a step graph a (Nw, W), which keeps the `fn` of its first
+        call (every fleet of a width computes the same outputs)."""
+        key = ("outputs",) + tuple(inputs[0].shape[:2])
+        step = self._graph(key, lambda: lambda carry, x: (carry, fn(*x)))
+        return step((), inputs)[1]
 
     def _get_fleet(self, W: int, factor_max: int):
         """The batched window step, its edges and its condensed submaps
@@ -247,12 +334,13 @@ class HbaRunner:
         return make_window_fleet(
             self.mesh, lambda *a: self._batch_step(*a, factor_max), W,
             condense_vs=self.cfg.map.voxel_size / 8.0,
-            point_max=self.kf_point_max)
+            point_max=self.kf_point_max, run=self._outputs)
 
     def _dispatch_window(self, kfs: list[Keyframe], W_pad: int,
                          factor_max: int = 1024):
-        """Run one window BA over `kfs` padded with dead frames to W_pad;
-        returns its device outputs (Rs, ps, H, r0, r1), not yet read."""
+        """Run one window BA over `kfs` padded with dead frames to W_pad
+        (`_window_step`); returns its device outputs (Rs, ps, H, r0, r1),
+        not yet read."""
         P = self.kf_point_max
         clouds = np.zeros((W_pad, P, 3), np.float32)
         masks = np.zeros((W_pad, P), np.float32)
@@ -298,9 +386,17 @@ class HbaRunner:
                     ord_a=kfs[i].scan_id, ord_b=kfs[j].scan_id,
                     R=rel_R[k], t=rel_p[k], v6=v6[k]))
 
+    def _get_condense(self, n: int):
+        """The window condense of n frames (`dist_gba.condense_window` at
+        voxel_size/8, `_graph`): (), (clouds, masks, Rs, ps) -> (),
+        (down, dmask)."""
+        vs, P = self.cfg.map.voxel_size / 8.0, self.kf_point_max
+        return self._graph(("condense", n), lambda: lambda carry, x: (
+            carry, condense_window(*x, vs, P)))
+
     def _dispatch_condense(self, kfs, Rs, ps):
-        """The window condense (`dist_gba.condense_window` at
-        voxel_size/8); returns the device (down, dmask), not yet read."""
+        """The window condense; returns the device (down, dmask), not yet
+        read, which no later condense overwrites."""
         P = self.kf_point_max
         n = len(kfs)
         clouds = np.zeros((n, P, 3), np.float32)
@@ -309,9 +405,9 @@ class HbaRunner:
             m = min(kf.cloud.shape[0], P)
             clouds[i, :m] = kf.cloud[:m]
             masks[i, :m] = kf.mask[:m]
-        return condense_window(
-            self._t(clouds), self._t(masks), self._t(np.asarray(Rs[:n])),
-            self._t(np.asarray(ps[:n])), self.cfg.map.voxel_size / 8.0, P)
+        _, out = self._get_condense(n)((), tuple(self._t(a) for a in (
+            clouds, masks, np.asarray(Rs[:n]), np.asarray(ps[:n]))))
+        return tuple(x.clone() for x in out)
 
     def _condense(self, kfs, Rs, ps, kf_index: int | None = None) -> Keyframe:
         down, dmask = self._fetch(*self._dispatch_condense(kfs, Rs, ps))
@@ -411,9 +507,10 @@ class HbaRunner:
                 masks[b, i, :m] = kf.mask[:m]
                 Rs[b, i] = kf.R0
                 ps[b, i] = kf.p0
-        outs = self._get_fleet(W, 1024)(
+        # copies: the next batch's replays overwrite the graphs' outputs
+        outs = tuple(x.clone() for x in self._get_fleet(W, 1024)(
             self._t(clouds), self._t(masks), self._t(Rs), self._t(ps),
-            self._t(np.ones((Nb, W), np.float32)))
+            self._t(np.ones((Nb, W), np.float32))))
         prev, self._fleet_inflight = self._fleet_inflight, (queue, outs)
         if prev is None:
             return dict(dispatched=len(queue))
@@ -507,6 +604,20 @@ class HbaRunner:
         lp.lp_edges.extend(self.edges2)
         lp._rebuild_graph_ids()
         return lp._optimize(g_update=False)
+
+
+class _Eager:
+    """A step function called as a StepGraph is, eagerly: inputs=None
+    keeps the last call's."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.inputs = None
+
+    def __call__(self, carry, inputs):
+        if inputs is not None:
+            self.inputs = inputs
+        return self.fn(carry, self.inputs)
 
 
 def _next_pow2(n: int) -> int:

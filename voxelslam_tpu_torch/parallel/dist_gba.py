@@ -17,7 +17,6 @@ determinism gives when every rank runs the same packets.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops.downsample import voxel_downsample
@@ -32,8 +31,8 @@ def all_pairs_edges(Rs, ps, H, W: int):
     reference skips it). Returns (rel_R (Np,3,3), rel_p (Np,3), v6 (Np,6),
     valid (Np,)), Np = W(W-1)/2; with a leading window axis on the inputs
     every output gains it."""
-    ii, jj = (torch.as_tensor(a, dtype=torch.int64, device=Rs.device)
-              for a in np.triu_indices(W, 1))
+    # made on the device: a copy from the host cannot be captured
+    ii, jj = torch.triu_indices(W, W, 1, device=Rs.device)
     Ri = Rs[..., ii, :, :]
     rel_R = Ri.transpose(-1, -2) @ Rs[..., jj, :, :]           # R_i^T R_j
     rel_p = ((ps[..., jj, :] - ps[..., ii, :])[..., None, :]
@@ -63,7 +62,7 @@ def condense_window(clouds, masks, Rs, ps, vs: float, P_out: int):
 
 def make_window_fleet(mesh, window_step, W: int,
                       condense_vs: float | None = None,
-                      point_max: int | None = None):
+                      point_max: int | None = None, run=None):
     """The batched (and, under a mesh with a process group, split) bottom-up
     GBA step.
 
@@ -77,10 +76,21 @@ def make_window_fleet(mesh, window_step, W: int,
     condensed submap clouds (Nw, point_max, 3). With a mesh of size D, Nw
     must be a multiple of D; each rank computes its Nw/D windows and, when
     the mesh has a process group, one all_gather gives every rank all of
-    them."""
+    them.
+
+    run: `run(fn, clouds, masks, wmask, Rs', ps', H, r0, r1)` computes a
+    rank's outputs of the window step's (default: `fn(...)`; the runner's
+    step graph); the all_gather stays outside it."""
     do_condense = condense_vs is not None
     D = 1 if mesh is None else mesh.size
     rank = 0 if mesh is None else mesh.rank
+
+    def outputs(clouds, masks, wmask, Rs2, ps2, H, r0, r1):
+        outs = (Rs2, ps2) + all_pairs_edges(Rs2, ps2, H, W) + (r0, r1)
+        if do_condense:
+            outs = outs + condense_window(clouds, masks * wmask[..., None],
+                                          Rs2, ps2, condense_vs, point_max)
+        return outs
 
     def fleet(clouds, masks, Rs, ps, wmask):
         Nb = clouds.shape[0]
@@ -90,11 +100,9 @@ def make_window_fleet(mesh, window_step, W: int,
         lo, hi = rank * Nb // D, (rank + 1) * Nb // D
         clouds, masks, Rs, ps, wmask = (x[lo:hi] for x in (clouds, masks, Rs,
                                                            ps, wmask))
-        Rs2, ps2, H, r0, r1 = window_step(clouds, masks, Rs, ps, wmask)
-        outs = (Rs2, ps2) + all_pairs_edges(Rs2, ps2, H, W) + (r0, r1)
-        if do_condense:
-            outs = outs + condense_window(clouds, masks * wmask[..., None],
-                                          Rs2, ps2, condense_vs, point_max)
+        step = window_step(clouds, masks, Rs, ps, wmask)
+        outs = (run(outputs, clouds, masks, wmask, *step) if run is not None
+                else outputs(clouds, masks, wmask, *step))
         if mesh is not None and mesh.group is not None:
             outs = _gather(mesh, outs)
         return outs

@@ -11,9 +11,12 @@ owns static buffers: the carry's leaves and the inputs. A call
   1. copies each carry leaf that is not already its static buffer into
      that buffer (a caller that rebound the carry between dispatches:
      a reset, an eviction, a loop correction, a checkpoint load), and the
-     host's numpy inputs into the static inputs (on the card through
-     pinned staging buffers, two in turn, each reused only after the event
-     of its last copy);
+     inputs into the static inputs: the host's numpy arrays (on the card
+     through pinned staging buffers, two in turn, each reused only after
+     the event of its last copy) or tensors on the device (copied on the
+     device); `inputs=None` keeps what the last call staged, so a loop
+     over inputs that do not change (a GBA window's rounds) stages them
+     once;
   2. runs `fn` on the static buffers and copies the returned carry back
      into them, so the state advances in place (the donation);
   3. returns the static carry tree and the extras.
@@ -26,6 +29,12 @@ the static carry is overwritten: a caller that keeps either across a
 dispatch clones it. On the CPU step 2 runs eagerly each call, with the
 extras copied into buffers of their own, so the same reuse shows there.
 A failed capture or replay raises; nothing falls back to eager.
+
+Graphs that never run concurrently may share one memory pool (`pool`, a
+`torch.cuda.graph_pool_handle()`): a later capture may then place its
+extras where an earlier graph keeps its temporaries, so a caller clones
+an extra it keeps before another graph of the pool replays (the static
+carry and inputs are allocated outside every pool).
 
 Kernel launch counters (`ops.moments.counter`, `ops.segment_add.counter`)
 record a capture's launches apart; each replay adds them, so the counters
@@ -72,9 +81,11 @@ class StepGraph:
     """`fn(carry, inputs)` over static buffers, one CUDA graph replay a
     call on the card (see the module docstring)."""
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, pool=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.pool = pool
+        self.calls = 0
         self.tree = None            # the static carry tree
         self.static = None          # its leaves
         self.inputs = None          # static input tensors
@@ -87,11 +98,16 @@ class StepGraph:
         self._turn = 0
 
     def __call__(self, carry, inputs):
-        """carry: the caller's carry tree; inputs: numpy arrays. Returns
-        (static carry tree, extras)."""
+        """carry: the caller's carry tree; inputs: numpy arrays, tensors
+        on the device, or None to keep the last call's. Returns (static
+        carry tree, extras)."""
         src = leaves(carry)
         if self.tree is None:
+            if inputs is None:
+                raise ValueError("the first call of a step graph stages its "
+                                 "inputs")
             self._allocate(carry, inputs)
+        self.calls += 1
         if len(src) != len(self.static) or any(
                 s.shape != d.shape or s.dtype != d.dtype
                 for s, d in zip(src, self.static)):
@@ -116,6 +132,11 @@ class StepGraph:
         self.tree = tmap(lambda a: torch.empty_like(
             a, memory_format=torch.contiguous_format), carry)
         self.static = leaves(self.tree)
+        if all(torch.is_tensor(a) for a in inputs):
+            self.inputs = tuple(torch.empty_like(
+                a, device=self.device, memory_format=torch.contiguous_format)
+                for a in inputs)
+            return
         arrs = [np.asarray(a) for a in inputs]
         self.inputs = tuple(
             torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype))
@@ -126,6 +147,11 @@ class StepGraph:
                                    for t in self.inputs) for _ in range(2)]
 
     def _stage(self, inputs):
+        if inputs is None:
+            return
+        if all(torch.is_tensor(a) for a in inputs):
+            assign(self.inputs, inputs)
+            return
         if self.device.type != "cuda":
             for dst, a in zip(self.inputs, inputs):
                 dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
@@ -157,7 +183,7 @@ class StepGraph:
         t0 = time.perf_counter()
         before = [c.captured for c in COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side,
+        with torch.cuda.graph(graph, pool=self.pool, stream=side,
                               capture_error_mode="thread_local"):
             self.extras = self._step()
         self.captured_launches = [c.captured - b

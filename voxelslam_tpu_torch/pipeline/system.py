@@ -47,15 +47,18 @@ class SlamSystem:
     def __init__(self, cfg: SlamConfig, enable_loop: bool = True,
                  enable_gba: bool = False,
                  previous_maps: list[str] | None = None,
-                 savepath: str | None = None, device=None):
+                 savepath: str | None = None, device=None,
+                 step_graphs: bool = True):
         """previous_maps: prior session names under `savepath` to load and
         relocalize against (the reference's General/previous_map param,
-        voxelslam.cpp:282-308)."""
+        voxelslam.cpp:282-308). step_graphs: the odometry's steady steps
+        and the GBA's rounds and condenses as CUDA graph replays (both
+        `SlamPipeline`'s and `HbaRunner`'s flag)."""
         self.cfg = cfg
         self.savepath = savepath
         self.device = resolve_device(device)
         self.odom = SlamPipeline(cfg, collect_clouds=enable_loop,
-                                 device=self.device)
+                                 device=self.device, step_graphs=step_graphs)
         self.loop = (LoopPipeline(cfg, device=self.device) if enable_loop
                      else None)
         self.session_names: list[str] = []
@@ -75,7 +78,7 @@ class SlamSystem:
             # over them; one process: None, one window at a time
             ensure_distributed()
             self.gba = HbaRunner(cfg, mesh=global_win_mesh(),
-                                 device=self.device)
+                                 device=self.device, step_graphs=step_graphs)
         self._gba_consumed: dict[int, int] = {}
         self._emitted = 0
         self._session = 0

@@ -38,13 +38,15 @@ FORMAT_VERSION = 1   # the port's own format, numbered apart from the JAX
 # device and config, the constants derived from the config, the
 # odometry's dispatch widths and step graphs (rebuilt at the first
 # dispatch after a load; the loaded carry is copied into their buffers),
-# and the GBA's mesh (it holds the process group) and batch width, which
-# come from the loading system's constructor
+# the GBA runner's step graphs and their memory pool (rebuilt at first
+# use; what a window, batch or condense left in flight is a copy, not a
+# graph's buffer), and the GBA's mesh (it holds the process group) and
+# batch width, which come from the loading system's constructor
 _SKIP_KEYS = {
     "device", "cfg", "btc_cfg", "noise_meas", "noise_walk", "R_ext", "t_ext",
     "collect_clouds", "kf_point_max", "_capacity", "_unique_max",
-    "_ring_K", "_batch_K", "_stats_len", "step_graphs", "_graphs", "mesh",
-    "_fleet_batch",
+    "_ring_K", "_batch_K", "_stats_len", "step_graphs", "_graphs", "_pool",
+    "mesh", "_fleet_batch",
 }
 # SlamSystem's own state
 _SYSTEM_KEYS = ("session_names", "_gba_consumed", "_emitted", "_session",
