@@ -41,7 +41,10 @@ Phases, each printing one JSON line:
                 steady scan, segment_add on the path; ms a steady scan
                 each way, host launches a scan and device busy share
                 (torch.profiler over the second graphed run's last 12
-                scans), device ms of a replay, capture seconds, peak memory; then segment_add
+                scans), device ms of a replay of each step graph (the
+                init path's too), capture seconds, the end-of-run flush's
+                ms (a partial batch drained through the K = 1 steady
+                graph) each way, peak memory; then segment_add
                 checked and timed on the main path's own inputs (the
                 downsample's);
   5. system   - SlamSystem.process_scan with loop closure on, at bench.py's
@@ -64,9 +67,14 @@ Phases, each printing one JSON line:
      the GBA's rounds and condenses as CUDA graphs (capture seconds by
      key), and finish() again from a checkpoint taken just before it, in
      new systems eager and graphed: seconds each, poses and GBA edges
-     bitwise the run's own; the second run splits an init-accum and a
-     dynamic-init scan's time (`InitProbe`: host syncs with file:line,
-     launches, kernels, device busy share, knn's top-k device ms);
+     bitwise the run's own; the init path's graphs (calls and capture
+     seconds, segment_add's launches in them); the second run splits
+     init-accum and dynamic-init scans' time graphed and eager
+     (`InitProbe`: host syncs with file:line, host launches, kernels,
+     device busy share, device ms of each step, knn's top-k device ms),
+     with the checks that each was profiled, that every init graph ran
+     and that a graphed dynamic init launches at least 100 times less
+     than the eager one runs kernels;
   6. sessions - save() of the first system run's last session and its
                 reload through SlamSystem(previous_maps=[...]): floor(
                 scans / win_size) keyframes, a reloaded keyframe's BTC
@@ -133,7 +141,8 @@ Phases, each printing one JSON line:
   12. timing  - the wall seconds of the phases (device, build, kernel and
                 slice together as `to_system`);
   13. kernels - one line listing every kernel with its numbers (launches
-                by path: each phase's own, counted from 0);
+                by path: each phase's own, counted from 0; segment_add's
+                in the system runs' init graphs apart);
   14. the last line: {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Nothing runs on the CPU when no GPU is
@@ -735,7 +744,11 @@ def run_slice(cfg, traj, packets, device, capture=None, step_graphs=True,
         else:
             torch.cuda.synchronize()
             steady_s = time.perf_counter() - t_steady
+        drained = len(pipe._scan_queue)     # a partial batch: flush drains it
+        t0 = time.perf_counter()
         pipe.flush()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
         launches = mo.counter.launches
         seg_launches = sa.counter.launches
     poses = pipe.scan_poses
@@ -748,8 +761,10 @@ def run_slice(cfg, traj, packets, device, capture=None, step_graphs=True,
         poses=len(poses), est=est, rot=rot,
         finite=bool(np.isfinite(est).all() and np.isfinite(rot).all()),
         ate=float(ate_rmse(est, gt)), steady_scans=timed_end - N_WARM,
-        steady_s=steady_s, peak_bytes=torch.cuda.max_memory_allocated(),
+        steady_s=steady_s, drained=drained, flush_s=flush_s,
+        peak_bytes=torch.cuda.max_memory_allocated(),
         capture_s={k: g.capture_s for k, g in pipe._graphs.items()},
+        capture_bytes={k: g.capture_bytes for k, g in pipe._graphs.items()},
         profile=prof, pipe=pipe)
 
 
@@ -880,7 +895,10 @@ def steady_graph_phase(cfg, traj, packets, smi_line, capture):
          graphed_steady_scans_per_s=1e3 / per_scan(g1),
          profile_graphed=g2["profile"],
          replay_device_ms=replay,
-         capture_s=g1["capture_s"],
+         capture_s=g1["capture_s"], capture_bytes=g1["capture_bytes"],
+         flush=dict(drained_scans=g1["drained"],
+                    graphed_ms=[1e3 * g1["flush_s"], 1e3 * g2["flush_s"]],
+                    eager_ms=1e3 * eager["flush_s"]),
          peak_mem_bytes_graphed=g1["peak_bytes"],
          peak_mem_bytes_eager=eager["peak_bytes"],
          moments_launches=g1["launches"],
@@ -1497,19 +1515,33 @@ def _snapshot(sysm, xs, corr_ks):
         gba=gba_snapshot(sysm.gba), corr_ks=list(corr_ks))
 
 
+INIT_GRAPHS = ("init_accum", "init_round", "init_round_aligned",
+               "init_map")             # SlamPipeline's init-path graphs
+# InitProbe: after the scan of a kind that captures its graphs, the next
+# scans of that kind, each way
+INIT_PROBES = (("profile", True), ("profile", False), ("sync", True),
+               ("sync", False))
+
+
 class InitProbe:
-    """Splits the time of init scans in a system run: the first scan that
-    accumulates the init window (`init_accum`) and the first dynamic init
-    (the scan that fills the window and runs the init rounds), each under
-    the CUDA sync debug mode (`sync_sources`), and the next such scan each
-    under torch.profiler. An init_accum scan (about 4,300 launches) with
-    the host's ops (`profile_scans`: host launches, kernels, device busy
-    share, top kernels), `ops.knn`'s selection (`_smallest_k`, the
-    int64-key top-k) and its whole `knn` calls as profiler ranges, so
-    their device ms show apart; a dynamic init (over 300,000 launches,
-    whose host-side trace takes minutes to process) with the card's
-    activity alone (`profile_device`). Both report the device ms of the
-    kernels named top-k."""
+    """Splits the time of init scans in a system run, graphed (the run's
+    own path) and eager: an init-window scan (`init_accum`) and a dynamic
+    init (the scan that fills the window and runs the init rounds). The
+    first scan of each kind captures its graphs (its wall ms); the next
+    ones go through INIT_PROBES in turn. A dynamic init counts for either
+    only where it succeeds (else the next takes its turn again). Probes:
+    torch.profiler, then under the CUDA sync debug mode (`sync_sources`),
+    each graphed and eager (`step_graphs` off for that scan; eager is
+    bitwise graphed, so the run stays bitwise the unprobed first one). A
+    profile reports wall ms, kernels, device busy ms and share, the kernels
+    named top-k and the device ms of each `SlamPipeline._run` step (CUDA
+    events around it: a graph's replay, or the eager step's span on the
+    card). It records the host's ops too (`profile_scans`: host launches)
+    except for an eager dynamic init (over 300,000 launches, whose host-side
+    trace takes minutes to process), traced with the card's activity alone
+    (`profile_device`). An init_accum profile puts `ops.knn`'s selection
+    (`_smallest_k`) and its `knn` calls under profiler ranges, which the
+    eager scan alone shows."""
 
     def __init__(self):
         self.found = {}
@@ -1523,44 +1555,119 @@ class InitProbe:
 
     def __call__(self, sysm, pkt):
         kind = self.kind(sysm)
-        rec = self.found.setdefault(kind, {}) if kind else None
-        if rec is None or "profile" in rec:
+        if kind is None:
             return sysm.process_scan(*pkt)
-        if "host_syncs" not in rec:
-            out, src = sync_sources(lambda: sysm.process_scan(*pkt))
-            rec.update(host_syncs=sum(src.values()),
-                       sync_sources=dict(list(src.items())[:15]),
-                       sync_scan_phase=out.get("phase"))
+        rec = self.found.setdefault(kind, {"graphed": {}, "eager": {}})
+        if "capture_scan" not in rec:
+            import torch
+            t0 = time.perf_counter()
+            out = sysm.process_scan(*pkt)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            if kind == "dynamic_init" and out.get("phase") != "init_done":
+                rec.setdefault("retried_on", []).append(out.get("phase"))
+            else:                   # every graph of the kind captured
+                rec["capture_scan"] = dict(wall_ms=wall_ms,
+                                           phase=out.get("phase"))
             return out
-        outs = []
+        todo = [(what, g) for what, g in INIT_PROBES
+                if what not in rec["graphed" if g else "eager"]]
+        if not todo:
+            return sysm.process_scan(*pkt)
+        what, graphed = todo[0]
+        odom = sysm.odom
+        odom.step_graphs = graphed
+        try:
+            if what == "sync":
+                out, src = sync_sources(lambda: sysm.process_scan(*pkt))
+                got = dict(host_syncs=sum(src.values()),
+                           sync_sources=dict(list(src.items())[:15]))
+            else:
+                out, got = self.profile(sysm, pkt, kind, graphed)
+        finally:
+            odom.step_graphs = True
+        if kind == "dynamic_init" and out.get("phase") != "init_done":
+            rec.setdefault("retried_on", []).append(out.get("phase"))
+        else:
+            rec["graphed" if graphed else "eager"][what] = dict(
+                got, scan_phase=out.get("phase"))
+        return out
+
+    @staticmethod
+    def profile(sysm, pkt, kind, graphed):
+        """(process_scan's result, profile) of one probed scan."""
+        import torch
+        from voxelslam_tpu_torch.ops import knn
+        odom = sysm.odom
+        outs, spans = [], []
+        real_run = odom._run
+
+        def run(name, fn, carry, inputs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real_run(name, fn, carry, inputs)
+            ev[1].record()
+            spans.append((name, ev))
+            return out
 
         class Recorded:                 # keeps what process_scan returned
             def process_scan(self, *a):
                 outs.append(sysm.process_scan(*a))
                 return outs[-1]
-        if kind == "dynamic_init":
-            rec["profile"] = profile_device(Recorded(), pkt)
-            rec["profile_scan_phase"] = outs[0].get("phase")
-            return outs[0]
-        import torch
-        from voxelslam_tpu_torch.ops import knn
-        real = (knn._smallest_k, knn.knn)
-
-        def ranged(fn, name):
-            def call(*a, **kw):
-                with torch.profiler.record_function(f"stage:{name}"):
-                    return fn(*a, **kw)
-            return call
-        knn._smallest_k = ranged(real[0], "knn_topk")
-        knn.knn = ranged(real[1], "knn")
+        odom._run = run
         try:
-            summary, kernels = profile_scans(Recorded(), [pkt])
+            if kind == "dynamic_init" and not graphed:
+                got = profile_device(Recorded(), pkt)
+            else:
+                real = (knn._smallest_k, knn.knn)
+
+                def ranged(fn, name):
+                    def call(*a, **kw):
+                        with torch.profiler.record_function(f"stage:{name}"):
+                            return fn(*a, **kw)
+                    return call
+                knn._smallest_k = ranged(real[0], "knn_topk")
+                knn.knn = ranged(real[1], "knn")
+                try:
+                    summary, kernels = profile_scans(Recorded(), [pkt])
+                finally:
+                    knn._smallest_k, knn.knn = real
+                got = dict(summary, topk_kernels_device_ms=sum(
+                    us for name, _, us in kernels if "topk" in name.lower())
+                    / 1e3)
         finally:
-            knn._smallest_k, knn.knn = real
-        rec["profile"] = dict(summary, topk_kernels_device_ms=sum(
-            us for name, _, us in kernels if "topk" in name.lower()) / 1e3)
-        rec["profile_scan_phase"] = outs[0].get("phase")
-        return outs[0]
+            del odom._run
+        torch.cuda.synchronize()
+        steps = {}
+        for name, (a, b) in spans:
+            st = steps.setdefault(name, {"calls": 0, "device_ms": 0.0})
+            st["calls"] += 1
+            st["device_ms"] += a.elapsed_time(b)
+        got["steps"] = steps
+        return outs[0], got
+
+
+@contextlib.contextmanager
+def init_launches(counts):
+    """While active, counts[name] sums the segment_add launches (counted
+    once a graph replay) of each init-path step `SlamPipeline._run`
+    dispatches (patched on the class: a checkpoint pickles no wrapper)."""
+    from voxelslam_tpu_torch.ops import segment_add as sa
+    from voxelslam_tpu_torch.pipeline import odometry
+    real = odometry.SlamPipeline._run
+
+    def run(self, name, fn, carry, inputs):
+        if name not in INIT_GRAPHS:
+            return real(self, name, fn, carry, inputs)
+        n0 = sa.counter.launches
+        out = real(self, name, fn, carry, inputs)
+        counts[name] = counts.get(name, 0) + sa.counter.launches - n0
+        return out
+    odometry.SlamPipeline._run = run
+    try:
+        yield counts
+    finally:
+        odometry.SlamPipeline._run = real
 
 
 def profile_device(pipe, pkt):
@@ -1612,8 +1719,9 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
     n = len(packets) if stop is None else stop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    init_seg = {}
     with (stage_timers(times) if times is not None
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), init_launches(init_seg):
         sysm = SlamSystem(cfg, enable_loop=True, enable_gba=True,
                           savepath=savepath, device="cuda")
         lp = sysm.loop
@@ -1673,6 +1781,11 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
         n_other=len(other),
         n_steady_timed=len(steady), n_keyframe_scans=len(keyed),
         peak_bytes=torch.cuda.max_memory_allocated(), finish=fin,
+        init_segment_add_launches=init_seg,
+        init_graphs={k: dict(calls=g.calls, capture_s=g.capture_s,
+                             capture_bytes=g.capture_bytes)
+                     for k, g in sysm.odom._graphs.items()
+                     if k in INIT_GRAPHS},
         sysm=sysm if traj is not None else None,
         gba=dict(windows=len(sysm.gba.window_log),
                  rounds=[w["rounds"] for w in sysm.gba.window_log],
@@ -1834,6 +1947,12 @@ def system_phase(smi_line):
     r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"], probe=probe)
     identical = same_snapshot(r["snap"], r2["snap"])
     names = r["phases"]
+    dyn = probe.found.get("dynamic_init", {})
+    dyn_launches = dict(
+        graphed_host_launches=dyn.get("graphed", {}).get("profile", {}).get(
+            "host_launches_per_scan"),
+        eager_kernels=dyn.get("eager", {}).get("profile", {}).get(
+            "device_kernels"))
     cross0 = [e for e in r["edges"] if e[0] != e[1] and 0 in (e[0], e[1])]
     err_at = [r["errs"][k] for k in r["corr_ks"]]
     checks = {
@@ -1848,8 +1967,17 @@ def system_phase(smi_line):
         "top_down_ran": len(times.get("top_down", [])) == 1,
         "finish_graphed_bitwise_equal_to_eager":
             all(finish_cmp["bitwise_equal"]),
-        "init_scans_profiled": all("profile" in probe.found.get(k, {})
-                                   for k in ("init_accum", "dynamic_init")),
+        "init_scans_profiled": all(
+            what in probe.found.get(k, {}).get("graphed" if g else "eager",
+                                               {})
+            for k in ("init_accum", "dynamic_init")
+            for what, g in INIT_PROBES),
+        "init_graphs_run": all(r["init_graphs"].get(k, {}).get("calls")
+                               for k in INIT_GRAPHS),
+        "dynamic_init_graphed_launches_100x_below_eager":
+            None not in dyn_launches.values()
+            and 0 < 100 * dyn_launches["graphed_host_launches"]
+            <= dyn_launches["eager_kernels"],
     }
     n_kf = max(r["n_keyframes"], 1)
     stage = {}
@@ -1883,11 +2011,16 @@ def system_phase(smi_line):
          peak_mem_bytes=r["peak_bytes"], stages=stage,
          gba=dict(r["gba"], capture_s=gba_capture),
          finish=dict(r["finish"], graphed_against_eager=finish_cmp),
-         init_scans=probe.found, second_run_scans=r2["n"],
+         init_scans=probe.found, dynamic_init_launches=dyn_launches,
+         init_graphs=r["init_graphs"], init_graphs_run2=r2["init_graphs"],
+         init_segment_add_launches=[r["init_segment_add_launches"],
+                                    r2["init_segment_add_launches"]],
+         second_run_scans=r2["n"],
          run2_s=r2["run_s"], run2_gba=r2["gba"], checks=checks)
     if not all(checks.values()):
         fail(f"system checks failed: {checks}")
-    return r["launches"]
+    return r["launches"], sum(sum(x["init_segment_add_launches"].values())
+                              for x in (r, r2))
 
 
 def write_hesai_dataset(d, n_scans, n_az, n_el):
@@ -2926,8 +3059,11 @@ def main():
         seconds[name] = time.perf_counter() - t0
         seg_launches[name] = sa.counter.launches
         return out
-    launches["system"] = counted("system_and_sessions", system_phase,
-                                 smi_line)
+    launches["system"], init_seg = counted("system_and_sessions",
+                                           system_phase, smi_line)
+    # the init path's graphs of both system runs apart
+    seg_launches["system_and_sessions"] -= init_seg
+    seg_launches["system_init_graphs"] = init_seg
     launches["slice_mg2"] = counted("slice_mg2", slice_mg2_phase, cfg, traj,
                                     packets)
     counted("gba_window", gba_phase, smi_line)

@@ -380,4 +380,6 @@ def test_graphs_equal_eager_mgsize2(refill):
     assert ev_g == ev_e
     assert np.array_equal(xs_g, xs_e) and np.array_equal(p_g, p_e)
     assert log["accum"] == [] and log["steady"] == []
-    assert set(pipe._graphs) == {"steady", "accum"}
+    assert set(pipe._graphs) == {"steady", "accum", "init_accum",
+                                 "init_round", "init_round_aligned",
+                                 "init_map"}

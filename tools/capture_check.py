@@ -2,10 +2,13 @@
 """Can the port's step functions run as CUDA graphs, and do they sum in a
 fixed order? Two checks on one GPU, over each steady step function
 (`_steady_megastep_k` at bench.py's batch of 4, `_steady_megastep` with
-one scan a dispatch, `_mega_accum` with lba.mgsize = 2) and each function
-the global BA runs as a graph (`HbaRunner`'s round at the coarse and the
-fine phase, the batched round over two windows, the window condense and a
-batch's edges and condense), at SlamSystem's GBA widths on
+one scan a dispatch, `_mega_accum` with lba.mgsize = 2), each function of
+the init path (an init-window scan, a dynamic-init round at the relaxed
+and at the production gates and a successful init's map build and first
+window BA, in the first of those runs) and
+each function the global BA runs as a graph (`HbaRunner`'s round at the
+coarse and the fine phase, the batched round over two windows, the window
+condense and a batch's edges and condense), at SlamSystem's GBA widths on
 tests/test_gba.py's scene:
 
   1. host syncs: one dispatch, run eagerly, under
@@ -142,31 +145,34 @@ def check_dispatch(fn, carry, inputs):
                 ops_checked=mode.ops, ops_differing=dict(mode.found))
 
 
-def run(cfg, packets, step, device="cuda"):
-    """Drive an eager pipeline to its second dispatch of `step` and check
-    that dispatch."""
+def run(cfg, packets, steps, device="cuda"):
+    """Drive an eager pipeline and check its `nth` dispatch of each step
+    of `steps` ({name: nth}, names as `SlamPipeline._run` gets them).
+    Returns {name: result}."""
     import torch
     from voxelslam_tpu_torch.pipeline import SlamPipeline
-    pipe = SlamPipeline(cfg, collect_clouds=(step == "steady"),
+    pipe = SlamPipeline(cfg, collect_clouds=("steady" in steps),
                         device=device, step_graphs=False)
-    result, seen = {}, []
+    result, seen, staged = {}, collections.Counter(), {}
     real = pipe._run
 
     def checked(name, fn, carry, inputs):
-        if name == step and not result:
-            seen.append(name)
-            if len(seen) == 2:
-                tin = tuple(torch.as_tensor(a, device=pipe.device)
-                            for a in inputs)
-                result.update(check_dispatch(fn, carry, tin))
+        if inputs is not None:      # None: a round of the staged window
+            staged[name] = tuple(torch.as_tensor(a, device=pipe.device)
+                                 for a in inputs)
+        seen[name] += 1
+        if name in steps and seen[name] == steps[name]:
+            result[name] = check_dispatch(fn, carry, staged[name])
         return real(name, fn, carry, inputs)
     pipe._run = checked
     for pkt in packets:
         pipe.process_scan(*pkt)
-        if result:
+        if len(result) == len(steps):
             break
-    if not result:
-        raise RuntimeError(f"no {step} dispatch after the warm-up")
+    missing = set(steps) - set(result)
+    if missing:
+        raise RuntimeError(f"no dispatch of {sorted(missing)} "
+                           f"({dict(seen)})")
     return result
 
 
@@ -233,8 +239,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()}
-    for step, c in (("steady_k", cfg), ("steady", cfg), ("accum", mg2)):
-        res[step] = run(c, packets, step)
+    init = {"init_accum": 2, "init_round": 2, "init_round_aligned": 1,
+            "init_map": 1}
+    res.update(run(cfg, packets, dict(init, steady_k=2)))
+    res.update(run(cfg, packets, {"steady": 2}))
+    res.update(run(mg2, packets, {"accum": 2}))
     res.update(run_gba())
     ok = all(not r["host_syncs"] and r["outputs_repeat_bitwise"]
              for k, r in res.items() if k != "card")

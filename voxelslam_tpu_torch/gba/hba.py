@@ -69,7 +69,7 @@ from ..parallel.dist_gba import (all_pairs_edges, condense_window,
                                  make_window_fleet)
 from ..pipeline.graphs import StepGraph
 from ..pipeline.loop import Keyframe, LoopEdge
-from ..pipeline.odometry import resolve_device
+from ..pipeline.odometry import fetch, resolve_device
 
 CONV_THR = 0.05
 
@@ -126,15 +126,9 @@ class HbaRunner:
                                device=self.device)
 
     def _fetch(self, *xs):
-        """One device-to-host copy of several f32 tensors -> numpy arrays
-        of their shapes."""
-        flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs]).cpu()
+        """`odometry.fetch`, counted in host_syncs."""
         self.host_syncs += 1
-        out, o = [], 0
-        for x in xs:
-            out.append(flat[o:o + x.numel()].numpy().reshape(x.shape))
-            o += x.numel()
-        return out
+        return fetch(*xs)
 
     def _graph(self, key, make):
         """The step function `make()` builds, called as a StepGraph is

@@ -5,7 +5,7 @@ the port's counterpart of the JAX package's donated `jax.jit` megasteps
 `StepGraph(fn, device)` wraps `fn(carry, inputs) -> (carry, extras)`,
 where `carry` is a tree (`core.tensors.tmap`'s dataclasses, tuples and
 lists) of tensors that `fn` returns updated with the same structure and
-shapes, `inputs` a tuple of tensors and `extras` a tuple of tensors. It
+shapes, `inputs` a tuple of tensors and `extras` a tuple of such trees. It
 owns static buffers: the carry's leaves and the inputs. A call
 
   1. copies each carry leaf that is not already its static buffer into
@@ -28,7 +28,9 @@ then live in the graph's pool and the next replay overwrites them, as
 the static carry is overwritten: a caller that keeps either across a
 dispatch clones it. On the CPU step 2 runs eagerly each call, with the
 extras copied into buffers of their own, so the same reuse shows there.
-A failed capture or replay raises; nothing falls back to eager.
+A failed capture or replay raises; nothing falls back to eager. Python's
+garbage collector is held off during a capture (it could destroy a dead
+object's graph, which a capture refuses).
 
 Graphs that never run concurrently may share one memory pool (`pool`, a
 `torch.cuda.graph_pool_handle()`): a later capture may then place its
@@ -38,11 +40,13 @@ carry and inputs are allocated outside every pool).
 
 Kernel launch counters (`ops.moments.counter`, `ops.segment_add.counter`)
 record a capture's launches apart; each replay adds them, so the counters
-count kernel executions.
+count kernel executions. `capture_s` and `capture_bytes` (the device
+memory the capture reserved: its pool's growth) describe the capture.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -93,6 +97,7 @@ class StepGraph:
         self.graph = None
         self.captured_launches = None
         self.capture_s = None
+        self.capture_bytes = None   # device memory the capture reserved
         self._staging = None
         self._events = [None, None]
         self._turn = 0
@@ -118,8 +123,8 @@ class StepGraph:
         if self.device.type != "cuda":
             out = self._step()
             if self.extras is None:
-                self.extras = tuple(torch.empty_like(e) for e in out)
-            assign(self.extras, out)
+                self.extras = tmap(torch.empty_like, out)
+            assign(leaves(self.extras), leaves(out))
             return self.tree, self.extras
         if self.graph is None:
             return self.tree, self._warm_and_capture()
@@ -178,16 +183,28 @@ class StepGraph:
             first = self._step()              # this dispatch's step
         main = torch.cuda.current_stream()
         main.wait_stream(side)
-        for e in first:
+        for e in leaves(first):
             e.record_stream(main)
         t0 = time.perf_counter()
         before = [c.captured for c in COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                              capture_error_mode="thread_local"):
-            self.extras = self._step()
+        # a garbage collection inside the capture could free a dead
+        # object's graph, whose destruction the capture refuses (it is
+        # then invalidated): none until the capture has ended
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                # after the context's empty_cache: the pool's growth
+                reserved = torch.cuda.memory_reserved(self.device)
+                self.extras = self._step()
+        finally:
+            if collecting:
+                gc.enable()
         self.captured_launches = [c.captured - b
                                   for c, b in zip(COUNTERS, before)]
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        self.capture_bytes = torch.cuda.memory_reserved(self.device) - reserved
         return first

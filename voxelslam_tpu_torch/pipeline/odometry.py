@@ -63,8 +63,47 @@ def _np(x):
     return np.asarray(x)
 
 
+def fetch(*xs):
+    """One device-to-host copy of several tensors -> float32 numpy arrays
+    of their shapes."""
+    flat = _np(torch.cat([x.reshape(-1).to(torch.float32) for x in xs]))
+    out, o = [], 0
+    for x in xs:
+        out.append(flat[o:o + x.numel()].reshape(x.shape))
+        o += x.numel()
+    return out
+
+
 def _roll(a, mg):
     return torch.cat([a[mg:], a[:mg]], dim=0)
+
+
+@dataclasses.dataclass
+class InitWindow:
+    """The init window on the device, row i the window's scan i: its
+    downsampled body-frame cloud, mask and noise records, and the IMU
+    mid-point samples of the interval that ends at it (row 0's stay zero:
+    the window's first scan has no pair). What the JAX package keeps in
+    its host `scan_buf`/`imu_buf_*` during init; the host copies are taken
+    once, where first read."""
+    scans: torch.Tensor     # (W, P, 3)
+    masks: torch.Tensor     # (W, P)
+    trs: torch.Tensor       # (W, P, NV)
+    imu_g: torch.Tensor     # (W, M, 3), M = imu_max - 1
+    imu_a: torch.Tensor     # (W, M, 3)
+    imu_dt: torch.Tensor    # (W, M)
+    imu_m: torch.Tensor     # (W, M)
+
+    @staticmethod
+    def zeros(W: int, P: int, M: int, device) -> "InitWindow":
+        def z(*shape):
+            return torch.zeros(shape, device=device)
+        return InitWindow(z(W, P, 3), z(W, P), z(W, P, vm.NV), z(W, M, 3),
+                          z(W, M, 3), z(W, M), z(W, M))
+
+    def inputs(self) -> tuple:
+        return (self.scans, self.masks, self.trs, self.imu_g, self.imu_a,
+                self.imu_dt, self.imu_m)
 
 
 @dataclasses.dataclass
@@ -98,12 +137,23 @@ class SlamPipeline:
     default; raises when CUDA is absent and no device is named).
 
     With `step_graphs` (the default) every steady dispatch
-    (`_steady_megastep`, `_steady_megastep_k`, `_mega_accum`) runs
-    through a `graphs.StepGraph`: one CUDA graph replay a dispatch over
-    static carry buffers updated in place, the counterpart of the JAX
-    package's donated jits (on the CPU the same buffers, run eagerly).
-    `step_graphs=False` runs the same steps eagerly, each returning a new
-    carry, with bitwise the same results."""
+    (`_steady_megastep`, `_steady_megastep_k`, `_mega_accum`, the scans
+    of a partial queue drain) runs through a `graphs.StepGraph`: one CUDA
+    graph replay a dispatch over static carry buffers updated in place,
+    the counterpart of the JAX package's donated jits (on the CPU the same
+    buffers, run eagerly). So does the init path, the counterpart of the
+    JAX package's init jits: an init-window scan is one replay
+    ("init_accum"), a dynamic-init round one replay of its phase's graph
+    ("init_round", "init_round_aligned", the phase's gates baked in as
+    the eager round's floats) and a successful init's map build, refresh,
+    re-integration and first window BA one ("init_map"); the gravity
+    alignment between the phases runs eagerly (a few dozen ops, whose
+    capture costs more than it saves). The host reads a round's
+    residuals and degeneracy in one copy and decides between rounds, as
+    both packages' loops do. The graphs persist across `reset` and share
+    one memory pool. `step_graphs=False` runs
+    the same steps eagerly, each returning a new carry, with bitwise the
+    same results."""
 
     def __init__(self, cfg: SlamConfig, collect_clouds: bool = False,
                  device=None, step_graphs: bool = True):
@@ -113,6 +163,8 @@ class SlamPipeline:
         self.collect_clouds = collect_clouds
         self.step_graphs = step_graphs
         self._graphs: dict[str, StepGraph] = {}
+        self._pool = None            # the init graphs' memory pool (CUDA)
+        self._eager_inputs: dict[str, tuple] = {}
         kw = dict(dtype=torch.float32, device=self.device)
         self.noise_meas = torch.diag(torch.tensor(
             [cfg.lba.noise_gyr] * 3 + [cfg.lba.noise_acc] * 3, **kw))
@@ -126,16 +178,28 @@ class SlamPipeline:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     def _run(self, name, fn, carry, inputs):
-        """fn(carry, inputs) -> (carry, extras) for numpy `inputs`: through
+        """fn(carry, inputs) -> (carry, extras) for `inputs` numpy arrays,
+        tensors on the device, or None (the last call's of `name`): through
         the StepGraph `name` (made at first use: its shapes come from the
         config), or eagerly without step graphs. A caller that keeps an
         extra across the next dispatch clones it (a replay overwrites it)."""
         if not self.step_graphs:
-            return fn(carry, tuple(torch.as_tensor(a, device=self.device)
-                                   for a in inputs))
+            if inputs is not None:
+                self._eager_inputs[name] = tuple(
+                    torch.as_tensor(a, device=self.device) for a in inputs)
+            return fn(carry, self._eager_inputs[name])
         g = self._graphs.get(name)
         if g is None:
-            g = self._graphs[name] = StepGraph(fn, self.device)
+            # the init path's graphs share one pool: they never run at
+            # once, and what one hands out is read (a round's residuals)
+            # or copied into the steady step's buffers (the map build's
+            # outputs) before another of them replays
+            pool = None
+            if name.startswith("init_") and self.device.type == "cuda":
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                pool = self._pool
+            g = self._graphs[name] = StepGraph(fn, self.device, pool=pool)
         return g(carry, inputs)
 
     # ------------------------------------------------------------------
@@ -158,15 +222,12 @@ class SlamPipeline:
         self.win = NavState.identity((W,), device=dev)
         self.mp = torch.arange(W, dtype=torch.int32, device=dev)
         self.win_count = 0
-        self._preint_list = []
+        # the window's clouds on the host for the steady phase's emission
+        # (during init they live in init_win, on the device)
         self.scan_buf = np.zeros((W, P, 3), np.float32)
         self.scan_mask = np.zeros((W, P), np.float32)
         self.scan_tr = np.zeros((W, P, vm.NV), np.float32)
-        M = cfg.odom.imu_max - 1
-        self.imu_buf_g = np.zeros((W, M, 3), np.float32)
-        self.imu_buf_a = np.zeros((W, M, 3), np.float32)
-        self.imu_buf_dt = np.zeros((W, M), np.float32)
-        self.imu_buf_m = np.zeros((W, M), np.float32)
+        self.init_win = InitWindow.zeros(W, P, cfg.odom.imu_max - 1, dev)
         self.degrade_cnt = 0
         self._last_p = None
         self._pending = None
@@ -283,17 +344,24 @@ class SlamPipeline:
         win_shift = tmap(lambda a: _roll(a, mg), new_win)
         return levels, new_win, win_shift, mp_new, v6, r0, r1
 
-    def _preint_interval(self, imu_ts, gyr, acc, imask, last_end, scan_end,
-                         bg, ba):
-        """Preintegration over exactly (last_end, scan_end] (the reference
-        rewrites the boundary IMU stamps the same way, ekf_imu.hpp:125-133)."""
+    def _imu_mids(self, imu_ts, gyr, acc, imask, last_end, scan_end):
+        """Mid-point IMU samples over exactly (last_end, scan_end] (the
+        reference rewrites the boundary IMU stamps the same way,
+        ekf_imu.hpp:125-133): gyr, acc, dt and mask rows."""
         g_mid = 0.5 * (gyr[:-1] + gyr[1:])
         a_mid = 0.5 * (acc[:-1] + acc[1:])
         heads = torch.minimum(torch.maximum(imu_ts[:-1], last_end), scan_end)
         tails = torch.minimum(torch.maximum(imu_ts[1:], last_end), scan_end)
         dt = (tails - heads) * (imask[:-1] * imask[1:])
-        return g_mid, a_mid, dt, self._integrate_preint(
-            g_mid, a_mid, dt, imask[1:], bg, ba)
+        return g_mid, a_mid, dt, imask[1:]
+
+    def _preint_interval(self, imu_ts, gyr, acc, imask, last_end, scan_end,
+                         bg, ba):
+        """Preintegration over exactly (last_end, scan_end]."""
+        g_mid, a_mid, dt, m = self._imu_mids(imu_ts, gyr, acc, imask,
+                                             last_end, scan_end)
+        return g_mid, a_mid, dt, self._integrate_preint(g_mid, a_mid, dt, m,
+                                                        bg, ba)
 
     def _steady_megastep(self, state, levels, win, mp, preints, ring,
                          imu_blob, scan_blob, scal):
@@ -434,6 +502,97 @@ class SlamPipeline:
                              diag["nnt_eig"][0], dropped.to(f32)])
         return st, levels, win, preints, stats, down, dmask, tr
 
+    def _init_accum_fn(self, carry, inputs):
+        """One scan of the init window, the counterpart of the JAX
+        package's `_jit_prop_deskew`, `_jit_downsample`, `_jit_integrate`
+        and `_jit_kdtree_step` calls of an init scan: propagate + de-skew,
+        downsample, the scan's IMU mid-points, the kd-tree LIO update
+        against the accumulated init cloud, and the scan's rows of the
+        window at slot scal[3] (the JAX package's preintegration of the
+        scan is never read: a successful init integrates the window again
+        at the optimized biases). carry (x, init_cloud, init_cloud_mask,
+        win, init_win); inputs the steady step's IMU and scan blobs and
+        scal [t_beg, t_end, last_end, slot]; no extras."""
+        x, cloud, cmask, win, iw = carry
+        imu_blob, scan_blob, scal = inputs
+        imu_ts, gyr, acc, imask = (imu_blob[:, 0], imu_blob[:, 1:4],
+                                   imu_blob[:, 4:7], imu_blob[:, 7])
+        pts, offsets, pmask = scan_blob[:, 0:3], scan_blob[:, 3], scan_blob[:, 4]
+        scan_beg, scan_end, last_end = scal[0], scal[1], scal[2]
+        slot = scal[3].to(torch.int64)
+        x_prop, body = self._prop_deskew(x, imu_ts, gyr, acc, imask,
+                                         scan_beg, scan_end, last_end, pts,
+                                         offsets, pmask)
+        down, dmask, _, tr = self._downsample_var(body, pmask)
+        st, cloud, cmask = self._kdtree_step(x_prop, cloud, cmask, down,
+                                             dmask)
+        paired = slot > 0           # the window's first scan has no pair
+        imu = [put_row(old, slot, torch.where(paired, new,
+                                              take_row(old, slot)))
+               for old, new in zip(iw.inputs()[3:], self._imu_mids(
+                   imu_ts, gyr, acc, imask, last_end, scan_end))]
+        iw = InitWindow(put_row(iw.scans, slot, down),
+                        put_row(iw.masks, slot, dmask),
+                        put_row(iw.trs, slot, tr), *imu)
+        win = tmap(lambda a, b: put_row(a, slot, b), win, st)
+        return (st, cloud, cmask, win, iw), ()
+
+    def _init_round_fn(self, aligned: bool):
+        """A dynamic-init round at the relaxed (before the gravity
+        alignment) or the production plane gates, as the eager loop passes
+        them (np.float32), baked in: states, init_win.inputs() ->
+        states, ([r0, r1, ev0],). The counterpart of `_jit_init_round`,
+        which takes the gates as traced scalars."""
+        cfg = self.cfg
+        if aligned:
+            gates = cfg.map.min_eigen_value, cfg.map.plane_thr[0]
+        else:
+            gates = cfg.init.min_eigen_value, cfg.init.plane_thr
+        min_eig, thr = np.float32(gates[0]), np.float32(gates[1])
+
+        def rnd(states, inputs):
+            scans, masks, trs, *imu = inputs
+            states, r0, r1, ev = self._init_round(
+                scans, masks, trs, states, *imu, min_eig, thr)
+            return states, (torch.stack([r0, r1, ev]),)
+        return rnd
+
+    def _init_map_fn(self, states, inputs):
+        """Once a successful init, the counterpart of the JAX package's W
+        `_jit_push`, `_jit_refresh`, W - 1 `_jit_integrate` and
+        `_jit_ba_slide` calls: the map from the window's scans at the
+        optimized states (at init the slot map is arange(W), so frame i
+        is slot i), its planes, the window's preintegrations at the
+        optimized biases, and one window BA + marginalize + slide.
+        states, init_win.inputs() + (jour (1,),) -> the slid window, (x,
+        levels, mp, post-slide preintegration pairs, the emitted frames'
+        v6, t, R, p, v, bg, ba, g and the BA's r0, r1 packed in one
+        vector)."""
+        cfg = self.cfg
+        W, mg = cfg.lba.win_size, cfg.lba.mgsize
+        scans, masks, trs, imu_g, imu_a, imu_dt, imu_m, jour = inputs
+        mp = torch.arange(W, dtype=torch.int32, device=self.device)
+        levels = vm.empty_map(cfg.map, self.device)
+        for i in range(W):
+            levels = self._push_window(levels, states[i], scans[i], masks[i],
+                                       trs[i], i, jour[0])
+        levels = self._refresh(levels, states, mp, W)
+        preints = stack([
+            self._integrate_preint(imu_g[i], imu_a[i], imu_dt[i], imu_m[i],
+                                   states.bg[i - 1], states.ba[i - 1])
+            for i in range(1, W)])
+        levels, new_win, win_shift, mp_new, v6, r0, r1 = \
+            self._window_ba_slide(levels, states, preints, mp)
+        # after the slide entry k is pair (k, k+1); the stale tail entries
+        # are overwritten before a BA reads them
+        preints = tmap(lambda a: torch.cat([a[mg:]] + [a[-1:]] * mg), preints)
+        e = new_win[0:mg]
+        out = torch.cat([v6.reshape(-1)] + [
+            getattr(e, f).reshape(-1)
+            for f in ("t", "R", "p", "v", "bg", "ba", "g")]
+            + [torch.stack([r0, r1])])
+        return win_shift, (new_win[W - 1], levels, mp_new, preints, out)
+
     def _init_round(self, scans, masks, trs, states, imu_g, imu_a, imu_dt,
                     imu_m, min_eig, plane_thr):
         """One dynamic-init round: re-integrate at the current biases,
@@ -472,7 +631,7 @@ class SlamPipeline:
         voxelslam.cpp:470-496)."""
         g = states.g[0]
         gn = torch.linalg.vector_norm(g)
-        target = torch.tensor([0.0, 0.0, -1.0], device=self.device) * gn
+        target = torch.stack([gn * 0.0, gn * 0.0, -gn])    # (0, 0, -1) gn
         axis = torch.linalg.cross(g, target, dim=-1)
         s = torch.linalg.vector_norm(axis)
         c = torch.dot(g, target)
@@ -581,78 +740,58 @@ class SlamPipeline:
         ts_j, gyr_j, acc_j, imask = self._pad_imu(imu_ts, imu_gyr, imu_acc)
         last_end = self.last_scan_end if self.last_scan_end is not None else t_beg
         self.last_scan_end = t_end
-
+        imu_np = np.concatenate([ts_j[:, None], gyr_j, acc_j, imask[:, None]],
+                                axis=1, dtype=np.float32)
+        scan_np = np.concatenate([pts_j, off_j[:, None], pmask[:, None]],
+                                 axis=1, dtype=np.float32)
         if self.init_done:
-            return self._process_steady_fused(ts_j, gyr_j, acc_j, imask, t_beg,
-                                              t_end, last_end, pts_j, off_j,
-                                              pmask)
-
-        # --- init phase: separate steps ---
-        pts_t, off_t, pmask_t = self._t(pts_j), self._t(off_j), self._t(pmask)
-        ts_t, gyr_t, acc_t, imask_t = (self._t(ts_j), self._t(gyr_j),
-                                       self._t(acc_j), self._t(imask))
-        t_beg_t, t_end_t, last_t = self._t(t_beg), self._t(t_end), self._t(last_end)
-        x_prop, body = self._prop_deskew(self.x, ts_t, gyr_t, acc_t, imask_t,
-                                         t_beg_t, t_end_t, last_t, pts_t,
-                                         off_t, pmask_t)
-        down, dmask, var_b, tr = self._downsample_var(body, pmask_t)
-        g_mid, a_mid, dt, p_int = self._preint_interval(
-            ts_t, gyr_t, acc_t, imask_t, last_t, t_end_t, x_prop.bg, x_prop.ba)
-        self._last_imu_mid = (_np(g_mid), _np(a_mid), _np(dt),
-                              _np(imask_t[1:]))
-        return self._process_init(x_prop, down, dmask, var_b, tr, p_int, t_end)
+            return self._process_steady_fused(imu_np, scan_np, t_beg, t_end,
+                                              last_end)
+        return self._process_init(imu_np, scan_np, t_beg, t_end, last_end)
 
     # --- init phase -----------------------------------------------------
 
-    def _process_init(self, x_prop, down, dmask, var_b, tr, p_int, t_end):
-        cfg = self.cfg
-        W = cfg.lba.win_size
-        st, cloud, cmask = self._kdtree_step(
-            x_prop, self.init_cloud, self.init_cloud_mask, down, dmask)
-        self.x = st
-        self.init_cloud, self.init_cloud_mask = cloud, cmask
-
+    def _process_init(self, imu_np, scan_np, t_beg, t_end, last_end):
+        """An init-window scan (one "init_accum" dispatch, no host read);
+        the scan that fills the window runs the dynamic init."""
         i = self.win_count
-        self.win = tmap(lambda a, b: put_row(a, i, b), self.win, st)
-        self.scan_buf[i] = _np(down)
-        self.scan_mask[i] = _np(dmask)
-        self.scan_tr[i] = _np(tr)
-        if i > 0:
-            self._preint_list.append(p_int)
-            g_m, a_m, dt_m, m_m = self._last_imu_mid
-            self.imu_buf_g[i] = g_m
-            self.imu_buf_a[i] = a_m
-            self.imu_buf_dt[i] = dt_m
-            self.imu_buf_m[i] = m_m
+        scal = np.array([t_beg, t_end, last_end, i], np.float32)
+        carry, _ = self._run(
+            "init_accum", self._init_accum_fn,
+            (self.x, self.init_cloud, self.init_cloud_mask, self.win,
+             self.init_win), (imu_np, scan_np, scal))
+        (self.x, self.init_cloud, self.init_cloud_mask, self.win,
+         self.init_win) = carry
         self.win_count += 1
         self.scan_count += 1
-        if self.win_count < W:
+        if self.win_count < self.cfg.lba.win_size:
             return {"phase": "init_accum", "win": self.win_count}
+        return self._dynamic_init()
 
-        # --- dynamic init (motion_init, two phases, voxelslam.cpp:619-767):
-        # relaxed thresholds until the first within-round convergence
-        # (round >= 2), then align gravity, restore the production
-        # thresholds, tighten the gate to 0.01 and converge again
-        states = self.win
-        scans = self._t(self.scan_buf)
-        masks = self._t(self.scan_mask)
-        trs = self._t(self.scan_tr)
-        imu_bufs = (self._t(self.imu_buf_g), self._t(self.imu_buf_a),
-                    self._t(self.imu_buf_dt), self._t(self.imu_buf_m))
+    def _dynamic_init(self):
+        """motion_init, two phases (voxelslam.cpp:619-767): relaxed
+        thresholds until the first within-round convergence (round >= 2),
+        then align gravity, restore the production thresholds, tighten the
+        gate to 0.01 and converge again. A round is one dispatch of its
+        phase's graph, the window staged once a phase; the host reads the
+        round's r0, r1 and degeneracy in one copy and decides. On success
+        `_init_map` builds the map and runs the first window BA; on failure
+        the pipeline resets into a new session."""
+        cfg = self.cfg
+        inputs = self.init_win.inputs()
+        states, staged = self.win, set()
         ev0 = 0.0
         aligned = False
         conv_thr = cfg.init.converge_thre
         for rnd in range(cfg.init.max_rounds):
-            if aligned:
-                min_eig, thr = cfg.map.min_eigen_value, cfg.map.plane_thr[0]
-            else:
-                min_eig, thr = cfg.init.min_eigen_value, cfg.init.plane_thr
-            states, r0, r1, ev = self._init_round(
-                scans, masks, trs, states, *imu_bufs, np.float32(min_eig),
-                np.float32(thr))
-            r0, r1 = float(r0), float(r1)
+            name = "init_round_aligned" if aligned else "init_round"
+            states, (res,) = self._run(name, self._init_round_fn(aligned),
+                                       states,
+                                       None if name in staged else inputs)
+            staged.add(name)
+            r0, r1, ev = (float(v) for v in _np(res))
             if abs(r0 - r1) / max(r0, 1e-9) < conv_thr and rnd >= 2:
-                ev0 = float(ev)
+                ev0 = ev
                 if not aligned:
                     states = self._align_gravity(states)
                     aligned = True
@@ -669,78 +808,65 @@ class SlamPipeline:
             self.reset(session=self.session + 1)
             return {"phase": "init_failed", "ev0": float(ev0),
                     "g_norm": g_norm}
-
-        # success: build the real map from the window at optimized states
-        self.win = states
-        self.x = dataclasses.replace(
-            states[W - 1], cov=NavState.identity(device=self.device).cov)
-        self._gravity = states.g[0]
-        self.levels = vm.empty_map(cfg.map, self.device)
-        for i in range(W):
-            self.levels = self._push_window(
-                self.levels, states[i], self._t(self.scan_buf[i]),
-                self._t(self.scan_mask[i]), self._t(self.scan_tr[i]),
-                self.mp[i], self.jour)
-        self.levels = self._refresh_now()
-        self._preint_list = [
-            self._integrate_preint(
-                self._t(self.imu_buf_g[i]), self._t(self.imu_buf_a[i]),
-                self._t(self.imu_buf_dt[i]), self._t(self.imu_buf_m[i]),
-                states.bg[i - 1], states.ba[i - 1])
-            for i in range(1, W)]
-        self.init_done = True
-        r0, r1 = self._do_ba_slide()
-        # post-slide preint pairs for the steady path (entry k <-> pair
-        # (k, k+1); stale tail entries are overwritten before BA reads them)
-        plist = list(self._preint_list)
-        while len(plist) < W - 1:
-            plist.append(plist[-1])
-        self.preints_dev = stack(plist[:W - 1])
+        r0, r1 = self._init_map(states)
         return {"phase": "init_done", "g_norm": g_norm, "ev0": float(ev0),
                 "ba_r0": r0, "ba_r1": r1}
 
-    def _refresh_now(self):
-        return self._refresh(self.levels, self.win, self.mp, self.win_count)
-
-    def _do_ba_slide(self):
-        """Window BA + marginalize + slide (init path; the steady phase
-        runs it inside the megastep)."""
+    def _init_map(self, states):
+        """A successful init: one "init_map" dispatch (map, refresh,
+        re-integration, window BA + marginalize + slide), then one host
+        copy of the emitted frames and the window's clouds. Returns the
+        BA's (r0, r1)."""
         cfg = self.cfg
-        W = cfg.lba.win_size
-        mg = cfg.lba.mgsize
-        preints = stack(self._preint_list[-(W - 1):])
-        levels, new_win, win_shift, mp_new, v6, r0, r1 = \
-            self._window_ba_slide(self.levels, self.win, preints, self.mp)
-        v6 = _np(v6)
+        W, mg = cfg.lba.win_size, cfg.lba.mgsize
+        self._gravity = states.g[0].clone()   # a round graph's buffer
+        jour = torch.full((1,), self.jour, device=self.device)
+        win, (x, levels, mp, preints, out) = self._run(
+            "init_map", self._init_map_fn, states,
+            self.init_win.inputs() + (jour,))
+        iw = self.init_win
+        out, mp_was, scans, masks, trs = fetch(
+            out, self.mp, iw.scans, iw.masks, iw.trs)
+        assert np.array_equal(mp_was, np.arange(W)), \
+            "the init window's slot map is not arange(W)"
+        v6 = out[:6 * mg].reshape(mg, 6)
+        o = 6 * mg
+        e_t = out[o:o + mg]
+        e_R = out[o + mg:o + 10 * mg].reshape(mg, 3, 3)
+        e_p, e_v, e_bg, e_ba, e_g = (
+            out[o + j * mg:o + (j + 3) * mg].reshape(mg, 3)
+            for j in (10, 13, 16, 19, 22))
         for k in range(mg):
-            s = new_win[k]
             self.scan_poses.append(ScanPose(
-                t=float(s.t), R=_np(s.R), p=_np(s.p), v=_np(s.v), v6=v6[k],
-                cloud=self.scan_buf[k].copy(),
-                cloud_mask=self.scan_mask[k].copy(), session=self.session,
-                bg=_np(s.bg), ba=_np(s.ba), g=_np(s.g)))
-        self.levels = levels
-        self.win = win_shift
-        self.mp = mp_new
-        self.x = new_win[W - 1]
-        self.scan_buf = np.roll(self.scan_buf, -mg, axis=0)
-        self.scan_mask = np.roll(self.scan_mask, -mg, axis=0)
-        self.scan_tr = np.roll(self.scan_tr, -mg, axis=0)
-        self._preint_list = self._preint_list[mg:]
+                t=float(e_t[k]), R=e_R[k].copy(), p=e_p[k].copy(),
+                v=e_v[k].copy(), v6=v6[k].copy(), cloud=scans[k].copy(),
+                cloud_mask=masks[k].copy(), session=self.session,
+                bg=e_bg[k].copy(), ba=e_ba[k].copy(), g=e_g[k].copy()))
+        self.x, self.levels, self.win, self.mp = x, levels, win, mp
+        self.preints_dev = preints
+        self.scan_buf = np.roll(scans, -mg, axis=0)
+        self.scan_mask = np.roll(masks, -mg, axis=0)
+        self.scan_tr = np.roll(trs, -mg, axis=0)
         self.win_count = W - mg
-        return float(r0), float(r1)
+        self.init_done = True
+        return float(out[-2]), float(out[-1])
+
+    def _host_window(self):
+        """During init the window's clouds live on the device: copy its
+        first win_count rows to the host buffers (flush, a correction)."""
+        if self.init_done or not self.win_count:
+            return
+        n = self.win_count
+        iw = self.init_win
+        (self.scan_buf[:n], self.scan_mask[:n],
+         self.scan_tr[:n]) = fetch(iw.scans[:n], iw.masks[:n], iw.trs[:n])
 
     # --- steady phase ----------------------------------------------------
 
-    def _process_steady_fused(self, ts_j, gyr_j, acc_j, imask, t_beg, t_end,
-                              last_end, pts_j, off_j, pmask):
+    def _process_steady_fused(self, imu_np, scan_np, t_beg, t_end, last_end):
         """Steady phase: one megastep per scan (or per `batch_scans`
         queued scans). Stats are read back once per ring fill, after the
         next scan was dispatched, so emission lags up to ring+1 scans."""
-        imu_np = np.concatenate([ts_j[:, None], gyr_j, acc_j, imask[:, None]],
-                                axis=1, dtype=np.float32)
-        scan_np = np.concatenate([pts_j, off_j[:, None], pmask[:, None]],
-                                 axis=1, dtype=np.float32)
         if self._batch_K > 1:
             return self._process_steady_batched(imu_np, scan_np, t_beg, t_end,
                                                 last_end)
@@ -819,26 +945,28 @@ class SlamPipeline:
                                             "t": t_end}
 
     def _drain_queue_partial(self):
-        """Run a partially filled queue scan by scan; sets `_pending`."""
+        """Run a partially filled queue scan by scan through the K = 1 step
+        graph ("steady", the JAX package's `_jit_megastep`); sets
+        `_pending`."""
         q, self._scan_queue = self._scan_queue, []
         t_ends, self._pend_t = self._pend_t, []
         rows = []
+        cc = self.collect_clouds
         for (imu_np, scan_np, t_beg, t_end, last_end) in q:
             ring1 = torch.zeros((1, self._stats_len), device=self.device)
-            scal = self._t([t_beg, t_end, last_end, self.jour, 0.0])
-            (x, levels, win, mp, preints, ring1, down, dmask, tr) = \
-                self._steady_megastep(self.x, self.levels, self.win, self.mp,
-                                      self.preints_dev, ring1,
-                                      self._t(imu_np), self._t(scan_np), scal)
-            self.x, self.levels, self.win, self.mp = x, levels, win, mp
-            self.preints_dev = preints
-            rows.append((ring1, down, dmask, tr))
-        stats = np.stack([_np(r[0][0]) for r in rows])
-        cc = self.collect_clouds
-        self._pending = (stats, len(q), t_ends,
-                         np.stack([_np(r[1]) for r in rows]) if cc else None,
-                         np.stack([_np(r[2]) for r in rows]) if cc else None,
-                         np.stack([_np(r[3]) for r in rows]) if cc else None)
+            scal = np.array([t_beg, t_end, last_end, self.jour, 0.0],
+                            np.float32)
+            ((self.x, self.levels, self.win, self.mp, self.preints_dev, ring1),
+             clouds) = self._run(
+                "steady", self._steady_fn,
+                (self.x, self.levels, self.win, self.mp, self.preints_dev,
+                 ring1), (imu_np, scan_np, scal))
+            # the next replay overwrites the ring and the clouds
+            rows.append((ring1.clone(),) + (tuple(c.clone() for c in clouds)
+                                            if cc else ()))
+        self._pending = (torch.cat([r[0] for r in rows]), len(q), t_ends) + (
+            tuple(torch.stack([r[j] for r in rows]) for j in (1, 2, 3))
+            if cc else (None, None, None))
 
     def _process_steady_accum(self, imu_np, scan_np, scal, t_end):
         """Window-refill scan (lba.mgsize > 1, win_count < W-1): one
@@ -981,6 +1109,7 @@ class SlamPipeline:
         with gravity. The emitted ScanPoses were already moved by the loop
         pipeline (shared objects)."""
         self._flush_pending()   # emit the pre-correction state first
+        self._host_window()
         cfg = self.cfg
         W = cfg.lba.win_size
         dR = self._t(dx_R)
@@ -1039,6 +1168,7 @@ class SlamPipeline:
     def flush(self):
         """Emit the remaining window states as ScanPoses (end of run)."""
         self._flush_pending()
+        self._host_window()
         for k in range(self.win_count):
             s = self.win[k]
             self.scan_poses.append(ScanPose(

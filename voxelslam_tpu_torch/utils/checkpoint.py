@@ -31,13 +31,15 @@ import pickle
 
 import torch
 
-FORMAT_VERSION = 1   # the port's own format, numbered apart from the JAX
-                     # package's
+FORMAT_VERSION = 2   # the port's own format, numbered apart from the JAX
+                     # package's; 2: the init window lives on the device
+                     # (`SlamPipeline.init_win`)
 
 # attributes re-created by __init__ that must NOT be serialized: the
 # device and config, the constants derived from the config, the
 # odometry's dispatch widths and step graphs (rebuilt at the first
-# dispatch after a load; the loaded carry is copied into their buffers),
+# dispatch after a load; the loaded carry is copied into their buffers)
+# with the inputs its eager steps keep between the rounds of an init,
 # the GBA runner's step graphs and their memory pool (rebuilt at first
 # use; what a window, batch or condense left in flight is a copy, not a
 # graph's buffer), and the GBA's mesh (it holds the process group) and
@@ -45,7 +47,8 @@ FORMAT_VERSION = 1   # the port's own format, numbered apart from the JAX
 _SKIP_KEYS = {
     "device", "cfg", "btc_cfg", "noise_meas", "noise_walk", "R_ext", "t_ext",
     "collect_clouds", "kf_point_max", "_capacity", "_unique_max",
-    "_ring_K", "_batch_K", "_stats_len", "step_graphs", "_graphs", "_pool",
+    "_ring_K", "_batch_K", "_stats_len", "step_graphs", "_graphs",
+    "_eager_inputs", "_pool",
     "mesh", "_fleet_batch",
 }
 # SlamSystem's own state
