@@ -74,7 +74,18 @@ Phases, each printing one JSON line:
      device busy share, device ms of each step, knn's top-k device ms),
      with the checks that each was profiled, that every init graph ran
      and that a graphed dynamic init launches at least 100 times less
-     than the eager one runs kernels;
+     than the eager one runs kernels; the loop closure's and the loop
+     hooks' graphs (phase `system_graphs`): calls, capture seconds and
+     bytes of each in both runs and the loop pipeline's pool; the second
+     run probes the first call of each kind (`GraphProbe`: ms graphed and
+     eager, host syncs with file:line, host launches, kernels and device
+     ms of a call each way, graphed bitwise eager; the check that the
+     keyframe, the pose graph and the correction were probed and held),
+     the first run ends with one eviction of its map graphed against
+     eager (bitwise, ms, capture; and the eager load check against a
+     graph of it) and splits `DescriptorDB.verify`'s host time by part
+     (`verify_split`); the check that the keyframe, an ICP, the pose
+     graph, the correction and the reload ran as graphs;
   6. sessions - save() of the first system run's last session and its
                 reload through SlamSystem(previous_maps=[...]): floor(
                 scans / win_size) keyframes, a reloaded keyframe's BTC
@@ -119,9 +130,11 @@ Phases, each printing one JSON line:
                 waited on the loader, host decode ms a scan; then `export`
                 of the saved session and `info hesai`;
   10. checkpoint - SlamSystem on phase cli's packets, saved with a GBA
-                window in flight, continued 10 scans; restored on the card
-                it continues bitwise equal, restored on the CPU within
-                5e-3; save and load seconds, the file's bytes;
+                window in flight and the loop pipeline's graphs alive,
+                continued 10 scans; the file names no graph; restored on
+                the card (without graphs) it continues bitwise equal,
+                restored on the CPU within 5e-3; save and load seconds,
+                the file's bytes;
   11. remainders - the functions no entry point reaches, at the default
                 config's widths: the factor-major LiDAR factor on a window of
                 10 scene keyframes (hess_grad by autodiff and
@@ -152,6 +165,7 @@ found, and nothing falls back to a kernel's plain version.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -375,6 +389,16 @@ def bits(x):
     """A float32 tensor's bits on the CPU (+0.0 and -0.0 differ)."""
     import torch
     return x.cpu().contiguous().view(torch.int32)
+
+
+def bitwise_equal(a, b):
+    """Two tensors of any dtype equal bit for bit (shape and dtype too)."""
+    import torch
+
+    def raw(x):
+        return x.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(raw(a), raw(b)))
 
 
 def slot_stats(slots, upds, caps):
@@ -1454,24 +1478,28 @@ def gba_phase(smi_line):
         fail(f"gba_window checks failed: {checks}")
 
 
-LOOP_STAGES = ("merge", "extract", "db_search", "verify", "icp", "optimize",
-               "apply_correction", "keyframe_reload", "gba_window",
-               "total_ba", "top_down")
+LOOP_STAGES = ("keyframe", "db_search", "verify", "icp", "pose_graph",
+               "optimize", "apply_correction", "keyframe_reload",
+               "gba_window", "total_ba", "top_down")
 
 
 @contextlib.contextmanager
 def stage_timers(times):
     """While active, every call of a loop stage is clocked on the host with
-    a device synchronise before and after; times[stage] lists seconds."""
+    a device synchronise before and after; times[stage] lists seconds.
+    The clocks wrap the methods that dispatch a step graph, never a
+    function a graph captures (a synchronise cannot be captured):
+    "keyframe" is the merge and the BTC extraction, "icp" a chunk of
+    candidates, "pose_graph" the solve inside "optimize"."""
     import torch
     from voxelslam_tpu_torch.gba import hba
     from voxelslam_tpu_torch.loop import btc
     from voxelslam_tpu_torch.pipeline import loop, odometry
-    targets = [(loop.LoopPipeline, "_merge_keyframe", "merge"),
-               (loop, "btc_extract", "extract"),
+    targets = [(loop.LoopPipeline, "_keyframe", "keyframe"),
                (btc.DescriptorDB, "search", "db_search"),
                (btc.DescriptorDB, "verify", "verify"),
-               (loop, "icp_point_to_plane", "icp"),
+               (loop.LoopPipeline, "_icp_chunk", "icp"),
+               (loop.LoopPipeline, "_solve_pose_graph", "pose_graph"),
                (loop.LoopPipeline, "_optimize", "optimize"),
                (odometry.SlamPipeline, "apply_correction", "apply_correction"),
                (odometry.SlamPipeline, "insert_keyframe_fixed",
@@ -1497,6 +1525,345 @@ def stage_timers(times):
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
+
+
+@contextlib.contextmanager
+def verify_split(split):
+    """While active, `DescriptorDB.verify` (unchanged) runs under a line
+    tracer: split["seconds"][part] sums the host seconds of its lines by
+    part (a line's time runs from its line event to the next one, a call
+    inside it included): "kabsch_svd" (the batched Kabsch over the
+    hypotheses: centroids, einsums, SVD, determinant), "agreement" (the
+    64-hypothesis chunks' moved vertices and distances), "unique" (the
+    `np.unique` of each hypothesis's agreeing query triangles),
+    "overlap_of" (the plane-overlap score of the best hypotheses),
+    "refine_svd" (their `triangle_svd` refits) and "other" (the code
+    similarities, sorting, the gates); split["calls"] counts the calls.
+    Enter it before `stage_timers`: it traces the function itself."""
+    import inspect
+    from voxelslam_tpu_torch.loop import btc
+    real = btc.DescriptorDB.verify
+    code = real.__code__
+    lines, first = inspect.getsourcelines(real)
+    part_of, part = {}, "other"
+    for i, text in enumerate(lines):
+        t = text.strip()
+        if t.startswith("# batched Kabsch"):
+            part = "kabsch_svd"
+        elif t.startswith("scores = np.zeros"):
+            part = "agreement"
+        elif t.startswith("if scores.max"):
+            part = "other"
+        if "np.unique" in t:
+            part_of[first + i] = "unique"
+        elif "overlap_of(R, t)" in t and not t.startswith("def "):
+            part_of[first + i] = "overlap_of"
+        elif "triangle_svd(" in t:
+            part_of[first + i] = "refine_svd"
+        else:
+            part_of[first + i] = part
+    acc = split.setdefault("seconds", {})
+    split.setdefault("calls", 0)
+
+    def tracer(frame, event, arg):
+        if frame.f_code is not code:
+            return None
+        state = [None, time.perf_counter()]
+
+        def local(frame, event, arg):
+            now = time.perf_counter()
+            if state[0] is not None:
+                k = part_of.get(state[0], "other")
+                acc[k] = acc.get(k, 0.0) + now - state[1]
+            state[0] = frame.f_lineno if event == "line" else None
+            state[1] = time.perf_counter()
+            return local
+        return local
+
+    def traced(*a, **kw):
+        split["calls"] += 1
+        sys.settrace(tracer)
+        try:
+            return real(*a, **kw)
+        finally:
+            sys.settrace(None)
+    btc.DescriptorDB.verify = traced
+    try:
+        yield split
+    finally:
+        btc.DescriptorDB.verify = real
+
+
+@contextlib.contextmanager
+def uncounted():
+    """While active, kernel launches leave the counters as they were: the
+    calls a probe or a check adds to a run, to compare a graph with its
+    eager function, stay out of the main path's launch counts."""
+    from voxelslam_tpu_torch.ops import moments, segment_add
+    counters = (moments.counter, segment_add.counter)
+    saved = [c.launches for c in counters]
+    try:
+        yield
+    finally:
+        for c, n in zip(counters, saved):
+            c.launches = n
+
+
+LOOP_GRAPH_KINDS = ("keyframe", "icp_1", "icp_4", "pose_graph")
+HOOK_GRAPH_KINDS = ("correction", "g_reloc", "keyframe_reload", "evict")
+
+
+def graph_kind(key):
+    """The kind of a loop pipeline's graph key ("keyframe", ("icp", B),
+    ("pose_graph", K, E)) or of an odometry hook's graph name
+    ("correction_SxN", "g_reloc", "keyframe_reload_N", "evict"): one of
+    LOOP_GRAPH_KINDS + HOOK_GRAPH_KINDS, or None for other graphs."""
+    if isinstance(key, tuple):
+        return "pose_graph" if key[0] == "pose_graph" else f"icp_{key[1]}"
+    base = re.sub(r"_\d+(x\d+)?$", "", key)
+    return base if base in LOOP_GRAPH_KINDS + HOOK_GRAPH_KINDS else None
+
+
+def graph_table(graphs):
+    """{kind or key: calls, capture seconds and bytes} of the loop and hook
+    graphs among a pipeline's `_graphs`."""
+    return {str(k): dict(kind=graph_kind(k), calls=g.calls,
+                         capture_s=g.capture_s, capture_bytes=g.capture_bytes)
+            for k, g in graphs.items() if graph_kind(k) is not None}
+
+
+def call_profile(fn):
+    """fn() once under torch.profiler (host and card): the host's calls into
+    the CUDA runtime that launch work (kernels, graphs, copies, fills),
+    the kernels on the card and their device ms."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    runtime, kernels, busy_us = {}, 0, 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels += e.count
+            dev = getattr(e, "self_device_time_total", None)
+            busy_us += dev if dev is not None else getattr(
+                e, "self_cuda_time_total", 0)
+        elif e.key.startswith(HOST_LAUNCH_CALLS):
+            runtime[e.key] = runtime.get(e.key, 0) + e.count
+    return dict(host_launches=sum(runtime.values()),
+                host_launches_by_call=runtime, device_kernels=kernels,
+                device_ms=busy_us / 1e3)
+
+
+class GraphProbe:
+    """Probes, in a system run, the first call of each kind of loop and
+    hook graph (see `graph_kind`) while `active()`, with
+    `LoopPipeline._run` and `SlamPipeline._run` patched on the classes (a
+    checkpoint pickles no wrapper, and `InitProbe`'s own patch wraps this
+    one). The run's own call goes first, on a synchronised clock (the
+    capture, where the kind's graph is new). Then, from a copy of the
+    carry as it was and the same inputs: the eager function once, its
+    outputs held bitwise to the graphed call's; 3 graphed calls and 3
+    eager calls timed (ms, median; a graphed call includes its staging
+    and carry copies); host syncs of a graphed and an eager call, with
+    their source lines (`sync_sources`); host launches, kernels and
+    device ms of each (`call_profile`); a last graphed call, whose
+    outputs must again be the first's, so the buffers the run goes on
+    with hold its own results. Only where the pipeline runs graphed."""
+
+    def __init__(self):
+        self.found = {}
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+        from voxelslam_tpu_torch.pipeline import loop, odometry
+        real_l = loop.LoopPipeline._run
+        real_o = odometry.SlamPipeline._run
+        probe = self
+
+        def run_l(lp, key, fn, inputs):
+            kind = graph_kind(key)
+            if kind is None or kind in probe.found or not lp.step_graphs:
+                return real_l(lp, key, fn, inputs)
+            return probe._probe(
+                kind, key, lp._graphs, (),
+                lambda c: real_l(lp, key, fn, inputs),
+                lambda c: fn((), tuple(torch.as_tensor(a, device=lp.device)
+                                       for a in inputs))[1])
+
+        def run_o(od, name, fn, carry, inputs):
+            kind = graph_kind(name)
+            if kind is None or kind in probe.found or not od.step_graphs:
+                return real_o(od, name, fn, carry, inputs)
+            return probe._probe(
+                kind, name, od._graphs, carry,
+                lambda c: real_o(od, name, fn, c, inputs),
+                lambda c: fn(c, tuple(torch.as_tensor(a, device=od.device)
+                                      for a in inputs)))
+        loop.LoopPipeline._run = run_l
+        odometry.SlamPipeline._run = run_o
+        try:
+            yield self
+        finally:
+            loop.LoopPipeline._run = real_l
+            odometry.SlamPipeline._run = real_o
+
+    def _probe(self, kind, key, graphs, carry, graphed, eager):
+        import torch
+        from voxelslam_tpu_torch.core.tensors import tmap
+        from voxelslam_tpu_torch.pipeline.graphs import leaves
+
+        def copy():
+            return tmap(lambda a: a.clone(), c0)
+
+        def same(a, b):
+            la, lb = leaves(a), leaves(b)
+            return len(la) == len(lb) and all(
+                bitwise_equal(x, y) for x, y in zip(la, lb))
+
+        def ms(fn, c):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(c)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        c0 = tmap(lambda a: a.clone(), carry)    # the carry as it was
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = graphed(carry)                    # the run's own call
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        g = graphs[key]
+        ref = [x.clone() for x in leaves(out)]
+        rec = dict(key=str(key), first_call_ms=first_ms,
+                   captured_here=g.calls == 1, capture_s=g.capture_s,
+                   capture_bytes=g.capture_bytes)
+        with uncounted():
+            rec["bitwise_equal_eager"] = same(ref, eager(copy()))
+            times = {"graphed": [], "eager": []}
+            for _ in range(3):
+                times["graphed"].append(ms(graphed, copy()))
+                times["eager"].append(ms(eager, copy()))
+            for way, fn in (("graphed", graphed), ("eager", eager)):
+                ts = sorted(times[way])
+                rec[f"{way}_ms"] = ts[1]
+                c = copy()
+                _, src = sync_sources(lambda: fn(c))
+                rec[f"{way}_host_syncs"] = sum(src.values())
+                rec[f"{way}_sync_sources"] = dict(list(src.items())[:8])
+                c = copy()
+                rec[way] = call_profile(lambda: fn(c))
+            rec["replay_gives_the_first_outputs"] = same(ref,
+                                                         graphed(copy()))
+        self.found[kind] = rec
+        return out
+
+
+def eviction_check(sysm):
+    """One eviction of the system's map after the first run's last scan,
+    the current journey set evict_dist past the middle of the voxels'
+    creation stamps (the older ones go): eagerly (`SlamPipeline.
+    _evict_fn`) and through a new StepGraph of it (captured, then
+    replayed), bitwise equal, ms each (median of 3); and
+    the load check before it (`_occ_counts` and its read) eagerly against
+    a StepGraph of the same sums (the occupancy columns its inputs)."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.core.tensors import tmap
+    from voxelslam_tpu_torch.pipeline.graphs import StepGraph, leaves
+    odom = sysm.odom
+    levels = tmap(lambda a: a.clone(), odom.levels)
+    stamps = torch.cat([lv.jour[lv.occ] for lv in levels])
+    mid = (0.5 * float(stamps.min() + stamps.max()) if stamps.numel()
+           else 0.0)            # an empty map: nothing to evict (a check)
+    jour = np.array([mid + odom.cfg.map.evict_dist], np.float32)
+    jt = torch.as_tensor(jour, device=odom.device)
+
+    def timed(fn, n=3):
+        out, ts = None, []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return out, sorted(ts)[n // 2]
+    eager, eager_ms = timed(lambda: odom._evict_fn((levels,), (jt,)))
+    g = StepGraph(odom._evict_fn, odom.device)
+    _, first_ms = timed(lambda: g((levels,), (jour,)), n=1)
+    graphed, graphed_ms = timed(lambda: g((levels,), (jour,)))
+    dropped = int(eager[1][0].sum())        # survivors the rehash lost
+    occ_before = int(sum(int(lv.occ.sum()) for lv in levels))
+    occ_after = int(sum(int(lv.occ.sum()) for lv in eager[0][0]))
+    equal = all(bitwise_equal(a, b)
+                for a, b in zip(leaves(eager), leaves(graphed)))
+    occ = tuple(lv.occ for lv in levels)
+    counts = StepGraph(lambda c, x: (c, (torch.stack(
+        [torch.sum(o) for o in x]),)), odom.device)
+
+    def occ_graphed():
+        return counts((), occ)[1][0].cpu()
+    _, occ_first_ms = timed(occ_graphed, n=1)
+    c_g, occ_graphed_ms = timed(occ_graphed, n=5)
+    c_e, occ_eager_ms = timed(lambda: odom._occ_counts(levels).cpu(), n=5)
+    return dict(
+        evict=dict(jour_now=float(jour[0]), occupied_before=occ_before,
+                   occupied_after=occ_after, rehash_dropped=dropped,
+                   eager_ms=eager_ms, graphed_first_call_ms=first_ms,
+                   graphed_ms=graphed_ms, capture_s=g.capture_s,
+                   capture_bytes=g.capture_bytes, bitwise_equal=equal),
+        occ_counts=dict(eager_ms_with_read=occ_eager_ms,
+                        graphed_ms_with_read=occ_graphed_ms,
+                        graphed_first_call_ms=occ_first_ms,
+                        capture_s=counts.capture_s,
+                        equal=bool(torch.equal(c_g, c_e))))
+
+
+def icp_check(sysm):
+    """ICP at the run's shapes, outside the stage clocks: the last keyframe
+    against the four before it (from their recorded relative poses), a
+    chunk of one and one of four, through the loop pipeline's graphs
+    (("icp", 1) and ("icp", 4): replays, where the run captured them) and
+    eagerly, each call with its one host copy: bitwise equal, ms each
+    (median of 3)."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.pipeline.graphs import host_arrays
+    lp = sysm.loop
+    kfs = [kf for ss in lp.keyframes for kf in ss]
+    src, tgts = kfs[-1], kfs[-5:-1]
+    f32 = np.float32
+    out = {}
+    for B in (1, 4):
+        tg = tgts[-B:]
+        inputs = (np.asarray(src.cloud, f32), np.asarray(src.mask, f32),
+                  np.stack([k.cloud for k in tg]).astype(f32),
+                  np.stack([k.mask for k in tg]).astype(f32),
+                  np.stack([k.R0.T @ src.R0 for k in tg]).astype(f32),
+                  np.stack([k.R0.T @ (src.p0 - k.p0) for k in tg])
+                  .astype(f32))
+        res, times = {}, {}
+        for graphed in (True, False, True, False, True, False):
+            lp.step_graphs = graphed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[graphed] = host_arrays(*lp._run(("icp", B), lp._icp_fn,
+                                                inputs))
+            times.setdefault(graphed, []).append(
+                1e3 * (time.perf_counter() - t0))
+        lp.step_graphs = True
+        g = lp._graphs[("icp", B)]
+        out[f"icp_{B}"] = dict(
+            graphed_ms=sorted(times[True])[1],
+            eager_ms=sorted(times[False])[1], capture_s=g.capture_s,
+            capture_bytes=g.capture_bytes, ok=res[True][0].tolist(),
+            bitwise_equal=all(a.tobytes() == b.tobytes()
+                              for a, b in zip(res[True], res[False])))
+    return out
 
 
 def _snapshot(sysm, xs, corr_ks):
@@ -1701,12 +2068,18 @@ def profile_device(pipe, pkt):
 
 
 def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
-               traj=None, savepath=None, probe=None, finish_ckpt=None):
+               traj=None, savepath=None, probe=None, finish_ckpt=None,
+               graph_probe=None, split=None, at_end=None):
     """Drive SlamSystem.process_scan (loop closure and GBA on) over the
     packets, or the first `stop` of them; with `times`, clock the loop
     stages and every call; with `probe` (an InitProbe) each scan goes
     through it. The returned `snap` is taken after the last scan, or
     `tail` scans past the first correction when `tail` is set. With
+    `graph_probe` (a GraphProbe) the first call of each loop and hook
+    graph is probed (the probe's own launches uncounted); with `split` (a
+    dict) `verify`'s host time is split by part (`verify_split`);
+    `at_end(sysm)` runs after the last scan, uncounted, before the
+    checkpoint and finish(), its result returned. With
     `traj` (the ground truth) the run ends with finish(), and the
     position errors of the scans of the sessions linked to session 0 are
     taken before and after it; with `finish_ckpt` a checkpoint of the
@@ -1720,8 +2093,12 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     init_seg = {}
-    with (stage_timers(times) if times is not None
-          else contextlib.nullcontext()), init_launches(init_seg):
+    with (verify_split(split) if split is not None
+          else contextlib.nullcontext()), \
+            (stage_timers(times) if times is not None
+             else contextlib.nullcontext()), \
+            (graph_probe.active() if graph_probe is not None
+             else contextlib.nullcontext()), init_launches(init_seg):
         sysm = SlamSystem(cfg, enable_loop=True, enable_gba=True,
                           savepath=savepath, device="cuda")
         lp = sysm.loop
@@ -1752,6 +2129,13 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
         launches = mo.counter.launches
         if snap is None:
             snap = _snapshot(sysm, xs, corr_ks)
+        # the run's peak memory and graphs leave out what `at_end` does
+        peak = torch.cuda.max_memory_allocated()
+        tables = (graph_table(lp._graphs), lp.pool_bytes(),
+                  graph_table(sysm.odom._graphs))
+        with uncounted():
+            end = at_end(sysm) if at_end is not None else None
+        torch.cuda.reset_peak_memory_stats()
         if finish_ckpt is not None:
             sysm.save_checkpoint(finish_ckpt)
         fin = finish_system(sysm, traj) if traj is not None else None
@@ -1780,12 +2164,14 @@ def run_system(cfg, packets, gt, stop=None, tail=None, times=None,
         other_scan_ms=1e3 * float(np.mean(other)) if other else None,
         n_other=len(other),
         n_steady_timed=len(steady), n_keyframe_scans=len(keyed),
-        peak_bytes=torch.cuda.max_memory_allocated(), finish=fin,
+        peak_bytes=max(peak, torch.cuda.max_memory_allocated()), finish=fin,
         init_segment_add_launches=init_seg,
         init_graphs={k: dict(calls=g.calls, capture_s=g.capture_s,
                              capture_bytes=g.capture_bytes)
                      for k, g in sysm.odom._graphs.items()
                      if k in INIT_GRAPHS},
+        loop_graphs=tables[0], loop_pool_bytes=tables[1],
+        hook_graphs=tables[2], at_end=end,
         sysm=sysm if traj is not None else None,
         gba=dict(windows=len(sysm.gba.window_log),
                  rounds=[w["rounds"] for w in sysm.gba.window_log],
@@ -1929,9 +2315,13 @@ def system_phase(smi_line):
     with tempfile.TemporaryDirectory(prefix="smoke_sessions_",
                                      dir=build) as savepath:
         ckpt = os.path.join(savepath, "before_finish.ckpt")
+        split = {}
         r = run_system(cfg, packets, gt, tail=SYS_TAIL, times=times,
-                       traj=traj, savepath=savepath, finish_ckpt=ckpt)
+                       traj=traj, savepath=savepath, finish_ckpt=ckpt,
+                       split=split, at_end=lambda sysm: (
+                           eviction_check(sysm), icp_check(sysm)))
         gba_capture = capture_seconds(r["sysm"].gba)
+        eviction, icp = r["at_end"]
         sessions_phase(r.pop("sysm"), cfg)
         # finish() again from the state just before it, each in a new
         # system (its graphs captured anew): eager, then graphed
@@ -1943,9 +2333,14 @@ def system_phase(smi_line):
         bitwise_equal=[a[1] == fin_poses for a in again])
     del again
     # the second run (bitwise against the first) splits init scans' time
+    # and probes the first call of each loop and hook graph
     probe = InitProbe()
-    r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"], probe=probe)
+    gprobe = GraphProbe()
+    r2 = run_system(cfg, packets, gt, stop=r["snap"]["n"], probe=probe,
+                    graph_probe=gprobe)
     identical = same_snapshot(r["snap"], r2["snap"])
+    kinds_run = {v["kind"] for g in (r["loop_graphs"], r["hook_graphs"])
+                 for v in g.values() if v["calls"]}
     names = r["phases"]
     dyn = probe.found.get("dynamic_init", {})
     dyn_launches = dict(
@@ -1978,6 +2373,20 @@ def system_phase(smi_line):
             None not in dyn_launches.values()
             and 0 < 100 * dyn_launches["graphed_host_launches"]
             <= dyn_launches["eager_kernels"],
+        "loop_and_hook_graphs_run": {
+            "keyframe", "pose_graph", "correction", "keyframe_reload"}
+        <= kinds_run and bool({"icp_1", "icp_4"} & kinds_run),
+        "graph_probes_bitwise_eager": {"keyframe", "pose_graph",
+                                       "correction"} <= set(gprobe.found)
+        and all(v["bitwise_equal_eager"]
+                and v["replay_gives_the_first_outputs"]
+                for v in gprobe.found.values()),
+        "eviction_graphed_bitwise_eager": eviction["evict"]["bitwise_equal"]
+        and eviction["evict"]["occupied_after"]
+        < eviction["evict"]["occupied_before"]
+        and eviction["occ_counts"]["equal"],
+        "icp_graphed_bitwise_eager": all(v["bitwise_equal"]
+                                         for v in icp.values()),
     }
     n_kf = max(r["n_keyframes"], 1)
     stage = {}
@@ -1987,6 +2396,20 @@ def system_phase(smi_line):
                         ms_per_keyframe=1e3 * float(sum(ts)) / n_kf,
                         first_ms=1e3 * ts[0] if ts else None,
                         max_ms=1e3 * max(ts) if ts else None)
+    vs = split.get("seconds", {})
+    verify_host = dict(calls=split.get("calls"), traced_s=sum(vs.values()),
+                       seconds=dict(sorted(vs.items(), key=lambda kv:
+                                           -kv[1])),
+                       share={k: v / max(sum(vs.values()), 1e-12)
+                              for k, v in vs.items()},
+                       stage_clock_s=stage["verify"]["total_s"])
+    emit("system_graphs", nvidia_smi=smi_line,
+         loop_graphs=r["loop_graphs"], loop_pool_bytes=r["loop_pool_bytes"],
+         hook_graphs=r["hook_graphs"], loop_graphs_run2=r2["loop_graphs"],
+         hook_graphs_run2=r2["hook_graphs"], probes=gprobe.found,
+         not_probed=sorted(set(LOOP_GRAPH_KINDS + HOOK_GRAPH_KINDS)
+                           - set(gprobe.found)),
+         eviction=eviction, icp_at_end=icp, verify_host=verify_host)
     emit("system", config="bench.py widths, LoopConfig(jud_default=0.45)",
          scenario="tests/test_elevator.py organic degrade-reset-relocalize",
          nvidia_smi=smi_line, scans=r["n"], packet_gen_s=gen_s,
@@ -2272,8 +2695,9 @@ def _gba_state(sysm):
 def checkpoint_phase(packets, cfg):
     """Phase checkpoint: SlamSystem on phase cli's packets at its config
     (loop closure and GBA on, deterministic algorithms), saved at the
-    first scan after a keyframe that dispatched a GBA window, continued
-    CKPT_TAIL scans; a fresh system on the card loads the file and
+    first scan after a keyframe that dispatched a GBA window (the loop
+    pipeline's graphs alive), continued CKPT_TAIL scans; the file names no
+    graph, a fresh system on the card loads it without graphs and
     continues the same scans bitwise equal, and one on the CPU within
     POSE_TOL. Fails the run on any check. Returns the moments launches."""
     import tempfile
@@ -2301,7 +2725,8 @@ def checkpoint_phase(packets, cfg):
         is not None, keyframe_scans_accumulated=len(sys1.loop._bl_local),
         odom_pending_emission=sys1.odom._pending is not None,
         odom_scan_queue=len(sys1.odom._scan_queue),
-        odom_win_count=sys1.odom.win_count)
+        odom_win_count=sys1.odom.win_count,
+        loop_graphs=sorted(map(str, sys1.loop._graphs)))
     os.makedirs(OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="ckpt_", dir=OUT) as d:
         path = os.path.join(d, "live.ckpt")
@@ -2310,6 +2735,10 @@ def checkpoint_phase(packets, cfg):
         sys1.save_checkpoint(path)
         save_s = time.perf_counter() - t0
         nbytes = os.path.getsize(path)
+        with open(path, "rb") as f:
+            raw = f.read()
+        no_graph = b"StepGraph" not in raw and b"CUDAGraph" not in raw
+        del raw
         tail = packets[k:k + CKPT_TAIL]
         *ref, n1 = _continue(sys1, tail)
         launches = mo.counter.launches
@@ -2320,6 +2749,7 @@ def checkpoint_phase(packets, cfg):
         sys2.load_checkpoint(path)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        restored_graphless = not sys2.loop._graphs and not sys2.odom._graphs
         mo.counter.reset()
         *got, n2 = _continue(sys2, tail)
         launches2 = mo.counter.launches
@@ -2334,6 +2764,8 @@ def checkpoint_phase(packets, cfg):
     cpu_dev = [float(np.abs(a - b).max()) for a, b in zip(on_cpu, ref)]
     checks = {
         "window_in_flight_at_save": in_flight["gba_window_in_flight"],
+        "loop_graphs_alive_at_save": bool(in_flight["loop_graphs"]),
+        "no_graph_pickled": no_graph and restored_graphless,
         "restored_bitwise_equal": bool(np.array_equal(ref[0], got[0])
                                        and np.array_equal(ref[1], got[1])),
         "same_windows_edges_submaps_corrections":

@@ -9,7 +9,13 @@ window BA, in the first of those runs) and
 each function the global BA runs as a graph (`HbaRunner`'s round at the
 coarse and the fine phase, the batched round over two windows, the window
 condense and a batch's edges and condense), at SlamSystem's GBA widths on
-tests/test_gba.py's scene:
+tests/test_gba.py's scene, each loop-closure hook of the odometry (a
+correction's map rebuild, its gravity-joint window solve, a keyframe
+reload, an eviction; one run with clouds collected) and each program of
+the loop pipeline at its widths (the keyframe merge + BTC extraction over
+a window of that run's scans, ICP of one candidate and of a chunk padded
+to four against 8,192-point keyframes, the pose graph at 64 anchors and
+128 edges):
 
   1. host syncs: one dispatch, run eagerly, under
      `torch.cuda.set_sync_debug_mode("warn")`; every call that makes the
@@ -32,13 +38,16 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import sys
+import types
 import traceback
 import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(1, str(ROOT / "tests"))   # the loop-graph scenarios
 
 N_REPEAT = 2          # extra runs of each op
 PKG = "voxelslam_tpu_torch" + os.sep
@@ -176,6 +185,81 @@ def run(cfg, packets, steps, device="cuda"):
     return result
 
 
+HOOKS = ("correction", "g_reloc", "keyframe_reload", "evict")
+
+
+def run_hooks(cfg, packets, device="cuda"):
+    """Drive an eager pipeline with clouds collected, the map's load
+    checked every 4 scans at a load that always evicts, a g_update
+    correction from three keyframe stand-ins before scan 24 and a reload
+    before scan 28 (tests/test_torch_loop_graph_cuda.py's hooks), and
+    check the first dispatch of each hook. Returns ({name: result}, the
+    run's ScanPoses)."""
+    import torch
+    from voxelslam_tpu_torch.pipeline import SlamPipeline
+    from test_torch_loop_graph_cuda import DX_P, DX_R, stand_ins
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, evict_check_every=4, evict_load=0.01))
+    pipe = SlamPipeline(cfg, collect_clouds=True, device=device,
+                        step_graphs=False)
+    result = {}
+    real = pipe._run
+
+    def checked(name, fn, carry, inputs):
+        base = re.sub(r"_\d+(x\d+)?$", "", name)
+        if base in HOOKS and base not in result:
+            result[base] = check_dispatch(fn, carry, tuple(
+                torch.as_tensor(a, device=device) for a in inputs))
+        return real(name, fn, carry, inputs)
+    pipe._run = checked
+    for k, pkt in enumerate(packets):
+        if k == 24:
+            pipe.apply_correction(DX_R, DX_P, True,
+                                  stand_ins(pipe.scan_poses, (0, 2, -1)))
+        elif k == 28:
+            pipe.insert_keyframe_fixed(stand_ins(pipe.scan_poses, (1,))[0])
+        pipe.process_scan(*pkt)
+    pipe.flush()
+    missing = set(HOOKS) - set(result)
+    if missing:
+        raise RuntimeError(f"no dispatch of {sorted(missing)}")
+    return result, pipe.scan_poses
+
+
+def run_loop(cfg, poses, device="cuda"):
+    """Check one call of each loop program (see the module docstring) at
+    the loop pipeline's own widths, on two keyframes merged from the
+    windows of `poses`."""
+    import numpy as np
+    import torch
+    from voxelslam_tpu_torch.pipeline import LoopPipeline
+    from test_torch_loop_graph_cuda import icp_chunk, pose_chain
+    lp = LoopPipeline(cfg, device=device, step_graphs=False)
+    result = {}
+
+    def checked(key, fn, inputs):
+        staged = tuple(torch.as_tensor(a, device=device) for a in inputs)
+        name = "loop_" + (key if isinstance(key, str)
+                          else "_".join(map(str, key)))
+        if name not in result:
+            result[name] = check_dispatch(fn, (), staged)
+        return fn((), staged)[1]
+    lp._run = checked
+    W = cfg.lba.win_size
+    kfs = []
+    for j in range(2):
+        g = poses[j * W:(j + 1) * W]
+        down, dmask, _ = lp._keyframe(g, g[-1].R, g[-1].p)
+        kfs.append(types.SimpleNamespace(cloud=down, mask=dmask,
+                                         R0=np.asarray(g[-1].R),
+                                         p0=np.asarray(g[-1].p)))
+    chunk, cands = icp_chunk(kfs, np.random.default_rng(0))
+    for n in (1, 3):
+        lp._icp_chunk(kfs[1], chunk[:n], cands[:n])
+    lp._solve_pose_graph(*pose_chain(0))
+    return result
+
+
 def run_gba():
     """Check one call of each function the global BA captures (see the
     module docstring), eagerly, at `HbaRunner`'s default widths."""
@@ -244,6 +328,9 @@ def main():
     res.update(run(cfg, packets, dict(init, steady_k=2)))
     res.update(run(cfg, packets, {"steady": 2}))
     res.update(run(mg2, packets, {"accum": 2}))
+    hooks, poses = run_hooks(cfg, packets)
+    res.update(hooks)
+    res.update(run_loop(cfg, poses))
     res.update(run_gba())
     ok = all(not r["host_syncs"] and r["outputs_repeat_bitwise"]
              for k, r in res.items() if k != "card")

@@ -62,8 +62,10 @@ def main():
     if a.dump:
         os.makedirs(a.dump, exist_ok=True)
     packets, gt = et.elevator_packets(sim, a.stop)
+    # eager (bitwise the graphed default): the tracer wraps the ICP, whose
+    # calls a step graph would replay without calling it
     sysm = SlamSystem(et.system_config(cm), enable_loop=True,
-                      enable_gba=a.gba, device=a.device)
+                      enable_gba=a.gba, device=a.device, step_graphs=False)
     tr = et.Tracer(lambda x: x.detach().cpu().numpy(), a.dump)
     tr.install(tloop.LoopPipeline, btc.DescriptorDB,
                [(tloop, "icp_point_to_plane")])

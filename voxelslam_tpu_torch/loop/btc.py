@@ -364,9 +364,9 @@ def _projection_corners(cloud, mask, centers, normals, pvalid,
     # fallback plane: horizontal through the cloud centroid
     msum = torch.clamp(torch.sum(mask), min=1.0)
     c_fall = torch.sum(cloud * mask[:, None], dim=0) / msum
-    n_fall = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev)
     one = torch.ones((), dtype=f32, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
+    n_fall = torch.stack([zero, zero, one])
 
     pc_list, ps_list, pb_list, pv_list, frames = [], [], [], [], []
     ar = torch.arange(B, device=dev)
@@ -550,10 +550,9 @@ def _triangles(corners, summary, binary, cvalid, cfg: BtcConfig):
     d.fill_diagonal_(float("inf"))
     nn = torch.sort(d, dim=-1, stable=True).indices[:, :K]
 
-    a_, b_ = np.triu_indices(K, 1)
-    a_ = torch.as_tensor(a_, device=dev)
-    b_ = torch.as_tensor(b_, device=dev)
-    ii = torch.repeat_interleave(torch.arange(C, device=dev), len(a_))
+    # np.triu_indices(K, 1)'s pairs, made on the device (no host copy)
+    a_, b_ = torch.triu_indices(K, K, 1, device=dev)
+    ii = torch.arange(C, device=dev)[:, None].expand(C, a_.numel()).reshape(-1)
     jj = nn[:, a_].reshape(-1)
     kk = nn[:, b_].reshape(-1)
     nn_ok = (torch.isfinite(d[ii, jj]) & torch.isfinite(d[ii, kk])

@@ -8,7 +8,9 @@ icp_eigval and the last step is small.
 The JAX package's 20-step `lax.scan` is a Python loop here. Its `vmap`
 over candidates (LoopPipeline's batched verification) is a leading batch
 axis: a step is one knn + plane fit over (B, N, M) and one batched 6x6
-solve, for B candidates against their own targets.
+solve, for B candidates against their own targets. Nothing reads the
+card from the host (the gates are host floats, the solve checks no
+info), so a call can be captured as a CUDA graph (`LoopPipeline`).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def _step(src, src_mask, tgt, tgt_mask, R, t, gate):
     H = torch.einsum("bn,bni,bnj->bij", w, jac, jac) + 1e-6 * torch.eye(
         6, dtype=src.dtype, device=src.device)
     g = torch.einsum("bn,bni,bn->bi", w, jac, d)
-    dx = torch.linalg.solve(H, -g)
+    # `linalg.solve` is `solve_ex` and a host read of the LU's info
+    dx = torch.linalg.solve_ex(H, -g)[0]
     nnt = torch.einsum("bn,bni,bnj->bij", w, nrm, nrm)
     return (R @ so3.exp(dx[:, 0:3]), t + dx[:, 3:6], nnt,
             torch.sqrt(torch.sum(dx * dx, dim=-1)))

@@ -119,7 +119,8 @@ def solve_pose_graph_full(R, p, i_idx, j_idx, rel_R, rel_p, W6,
             g[:6] = 0.0
         d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-10))
         Hs = H / d[:, None] / d[None, :] + damping * eye
-        dx = (torch.linalg.solve(Hs, -(g / d)) / d).reshape(K, 6)
+        # `linalg.solve` is `solve_ex` and a host read of the LU's info
+        dx = (torch.linalg.solve_ex(Hs, -(g / d))[0] / d).reshape(K, 6)
         R = R @ so3.exp(dx[:, 0:3])
         p = p + dx[:, 3:6]
     return R, p, chi

@@ -14,7 +14,8 @@ owns static buffers: the carry's leaves and the inputs. A call
      inputs into the static inputs: the host's numpy arrays (on the card
      through pinned staging buffers, two in turn, each reused only after
      the event of its last copy) or tensors on the device (copied on the
-     device); `inputs=None` keeps what the last call staged, so a loop
+     device), of the first call's shapes; `inputs=None` keeps what the
+     last call staged, so a loop
      over inputs that do not change (a GBA window's rounds) stages them
      once;
   2. runs `fn` on the static buffers and copies the returned carry back
@@ -61,6 +62,21 @@ COUNTERS = (moments.counter, segment_add.counter)
 def leaves(tree) -> list:
     out = []
     tmap(out.append, tree)
+    return out
+
+
+def host_arrays(*xs) -> list:
+    """One device-to-host copy of several tensors of any dtypes -> numpy
+    arrays of their shapes and dtypes, bit for bit (each an array of its
+    own, never a view of a buffer that a later dispatch overwrites)."""
+    raw = [x.detach().contiguous().reshape(-1).view(torch.uint8) for x in xs]
+    flat = torch.cat(raw).cpu().numpy() if raw else np.zeros(0, np.uint8)
+    out, o = [], 0
+    for x, r in zip(xs, raw):
+        dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+        out.append(flat[o:o + r.numel()].view(dt).reshape(tuple(x.shape))
+                   .copy())
+        o += r.numel()
     return out
 
 
@@ -154,6 +170,11 @@ class StepGraph:
     def _stage(self, inputs):
         if inputs is None:
             return
+        if len(inputs) != len(self.inputs) or any(
+                tuple(np.shape(a) if not torch.is_tensor(a) else a.shape)
+                != tuple(d.shape) for a, d in zip(inputs, self.inputs)):
+            raise ValueError("the inputs' number or shapes differ from the "
+                             "captured step's")
         if all(torch.is_tensor(a) for a in inputs):
             assign(self.inputs, inputs)
             return

@@ -23,6 +23,18 @@ session set and flags a gravity re-rotation (g_update). Descriptor
 extraction, the keyframe merge, ICP and the pose-graph solve run as torch
 ops on `device`; search, RANSAC and the condensation are host numpy, as
 in the JAX package.
+
+With `step_graphs` (the default) each device program is one
+`graphs.StepGraph` replay a call, the counterpart of the JAX package's
+jits (`_jit_merge` and `_extract`, `_jit_icp`, `_jit_icp_b`, `_pg_cache`):
+"keyframe" (the merge, its downsample and the BTC extraction), ("icp", 1)
+and ("icp", 4) (a chunk of candidates; a short chunk is padded with
+copies of its first, as the JAX package pads it) and ("pose_graph", K, E)
+(one a capacity pair). Inputs are staged from the host's numpy arrays;
+the host reads a call's results in one copy (`graphs.host_arrays`). The
+graphs share one memory pool: they never run at once, and what one hands
+out is copied to the host before another replays. `step_graphs=False`
+runs the same functions eagerly, with bitwise the same results.
 """
 
 from __future__ import annotations
@@ -38,7 +50,12 @@ from ..loop import posegraph as pg
 from ..loop.btc import BtcConfig, DescriptorDB, extract as btc_extract
 from ..loop.icp import icp_point_to_plane
 from ..ops.downsample import voxel_downsample
+from .graphs import StepGraph, host_arrays
 from .odometry import resolve_device
+
+# the descriptor arrays `btc.extract` returns, in the keyframe graph's order
+DESC_KEYS = ("sides", "verts", "binary", "tri_valid", "plane_centers",
+             "plane_normals", "plane_valid")
 
 
 @dataclasses.dataclass
@@ -81,7 +98,8 @@ class LoopCorrection:
 
 class LoopPipeline:
     """Loop closure on `device` (CUDA by default; raises when CUDA is
-    absent and no device is named)."""
+    absent and no device is named); its device programs as step graphs
+    unless `step_graphs` is False (see the module docstring)."""
 
     # candidates per batched ICP call
     _icp_batch = 4
@@ -91,9 +109,13 @@ class LoopPipeline:
     # anchor/edge capacity ladder: x4 growth from 64
     _cap0 = 64
 
-    def __init__(self, cfg: SlamConfig, device=None):
+    def __init__(self, cfg: SlamConfig, device=None,
+                 step_graphs: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.step_graphs = step_graphs
+        self._graphs: dict = {}
+        self._pool = None            # the graphs' memory pool (CUDA)
         self.btc_cfg = BtcConfig.profile(cfg.loop.is_high_fly)
         self.kf_point_max = 8192
 
@@ -115,8 +137,26 @@ class LoopPipeline:
         self._bl_local: list = []           # pending window for keyframes
         self._x_key = None                  # last keyframe pose (R, p)
 
-    def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _run(self, key, fn, inputs):
+        """fn((), inputs)'s extras for `inputs` numpy arrays: one replay of
+        the StepGraph `key` (made at first use, in the pipeline's pool), or
+        eagerly without step graphs. The host copies what it keeps before
+        the next call (a replay overwrites the extras)."""
+        if not self.step_graphs:
+            return fn((), tuple(torch.as_tensor(a, device=self.device)
+                                for a in inputs))[1]
+        g = self._graphs.get(key)
+        if g is None:
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[key] = StepGraph(fn, self.device,
+                                              pool=self._pool)
+        return g((), inputs)[1]
+
+    def pool_bytes(self) -> int:
+        """Device memory the graphs' captures reserved (their shared
+        pool's growth), 0 before the first capture or on the CPU."""
+        return sum(g.capture_bytes or 0 for g in self._graphs.values())
 
     # -- session management -------------------------------------------------
 
@@ -154,6 +194,70 @@ class LoopPipeline:
                                           self.kf_point_max)
         return down, dmask.to(torch.float32)
 
+    def _keyframe_fn(self, carry, inputs):
+        """The keyframe merge and its BTC descriptors: inputs (clouds (W,
+        P, 3), masks (W, P), Rs (W, 3, 3), ps (W, 3), Rc, pc) -> extras
+        (down, dmask, the descriptor arrays of DESC_KEYS)."""
+        down, dmask = self._merge_keyframe(*inputs)
+        desc = btc_extract(down, dmask, self.btc_cfg)
+        return carry, (down, dmask) + tuple(desc[k] for k in DESC_KEYS)
+
+    def _keyframe(self, group, xc_R, xc_p):
+        """Merge the window `group` of ScanPoses into the pose (xc_R, xc_p)
+        and extract its descriptors: one dispatch, one host copy. Returns
+        (cloud, mask, descriptor dict) as numpy arrays."""
+        f32 = np.float32
+        out = host_arrays(*self._run("keyframe", self._keyframe_fn, (
+            np.stack([g.cloud for g in group]).astype(f32),
+            np.stack([g.cloud_mask for g in group]).astype(f32),
+            np.stack([g.R for g in group]).astype(f32),
+            np.stack([g.p for g in group]).astype(f32),
+            np.asarray(xc_R, f32), np.asarray(xc_p, f32))))
+        return out[0], out[1], dict(zip(DESC_KEYS, out[2:]))
+
+    def _icp_fn(self, carry, inputs):
+        """Point-to-plane ICP of one source against a batch of candidates:
+        inputs (src, smask, tgt (B, M, 3), tmask, R0 (B, 3, 3), t0 (B, 3))
+        -> extras (ok, R, t)."""
+        out = icp_point_to_plane(*inputs, icp_eigval=self.cfg.loop.icp_eigval)
+        return carry, (out["ok"], out["R"], out["t"])
+
+    def _icp_chunk(self, kf: Keyframe, chunk, kfs):
+        """ICP of keyframe `kf` against the candidate keyframes `kfs` from
+        their RANSAC transforms (`chunk`'s verify results): one candidate
+        through the ("icp", 1) graph, more through ("icp", _icp_batch),
+        a short chunk padded with copies of its first candidate (the JAX
+        package's `_jit_icp`/`_jit_icp_b`). Returns (ok, R, t) of the
+        chunk's candidates as numpy arrays."""
+        n = len(chunk)
+        B = 1 if n == 1 else self._icp_batch
+        pad = list(range(n)) + [0] * (B - n)
+        f32 = np.float32
+        ok, R, t = host_arrays(*self._run(("icp", B), self._icp_fn, (
+            np.asarray(kf.cloud, f32), np.asarray(kf.mask, f32),
+            np.stack([kfs[i].cloud for i in pad]).astype(f32),
+            np.stack([kfs[i].mask for i in pad]).astype(f32),
+            np.stack([chunk[i][1]["R"] for i in pad]).astype(f32),
+            np.stack([chunk[i][1]["t"] for i in pad]).astype(f32))))
+        return ok[:n], R[:n], t[:n]
+
+    def _pose_graph_fn(self, carry, inputs):
+        """The anchor graph's dense Gauss-Newton (6 iterations): inputs
+        (R, p, ii, jj, rel_R, rel_p, W6) -> extras (R, p)."""
+        R2, p2, _ = pg.solve_pose_graph_full(*inputs, iters=6)
+        return carry, (R2, p2)
+
+    def _solve_pose_graph(self, R, p, ii, jj, rel_R, rel_p, W6):
+        """One ("pose_graph", K, E) dispatch over the padded anchor graph
+        (the JAX package's `_pg_cache`); float64 (R, p) back."""
+        f32 = np.float32
+        K, E = len(R), len(ii)
+        R2, p2 = host_arrays(*self._run(("pose_graph", K, E),
+                                        self._pose_graph_fn, (
+            R.astype(f32), p.astype(f32), ii, jj, rel_R.astype(f32),
+            rel_p.astype(f32), W6.astype(f32))))
+        return R2.astype(np.float64), p2.astype(np.float64)
+
     # -- main step ----------------------------------------------------------
 
     def push(self, sp) -> LoopCorrection | None:
@@ -185,23 +289,15 @@ class LoopPipeline:
         # --- keyframe creation ---
         group = self._bl_local[:W]
         self._bl_local = []
-        down, dmask = self._merge_keyframe(
-            self._t(np.stack([g.cloud for g in group])),
-            self._t(np.stack([g.cloud_mask for g in group])),
-            self._t(np.stack([g.R for g in group])),
-            self._t(np.stack([g.p for g in group])), self._t(xc_R),
-            self._t(xc_p))
+        down, dmask, desc_np = self._keyframe(group, xc_R, xc_p)
         kf = Keyframe(
             kf_index=len(self.keyframes[sid]),
             scan_id=len(self.scan_poses[sid]) - 1, session=sid,
-            R0=np.asarray(xc_R), p0=np.asarray(xc_p),
-            cloud=down.cpu().numpy(), mask=dmask.cpu().numpy(),
-            jour=self.jours[sid])
+            R0=np.asarray(xc_R), p0=np.asarray(xc_p), cloud=down,
+            mask=dmask, jour=self.jours[sid])
         self.keyframes[sid].append(kf)
 
-        # --- descriptor extraction + search across sessions ---
-        desc = btc_extract(down, dmask, self.btc_cfg)
-        desc_np = {k: v.cpu().numpy() for k, v in desc.items()}
+        # --- search across sessions ---
         is_graph = False
         is_opt = False
         n_push = 0
@@ -262,11 +358,8 @@ class LoopPipeline:
         `tid`. Returns (matched keyframe, R_cm, t_cm) mapping current-kf
         body -> matched-kf body, or None. Candidates that clear the
         plane-overlap gate are ICP-verified in vote order, in chunks of
-        `_icp_batch` (one batched call each, the JAX package's vmap); the
-        first that passes is the match. The JAX package pads a short chunk
-        with copies of its first candidate for a fixed compiled shape;
-        here a chunk is only as long as it needs to be, which selects the
-        same candidate."""
+        `_icp_batch` (`_icp_chunk`: one dispatch each, the JAX package's
+        vmap); the first that passes is the match."""
         db = self.dbs[tid]
         cands = db.search(desc_np, skip_near=skip,
                           current_frame=kf.kf_index if tid == kf.session
@@ -280,24 +373,15 @@ class LoopPipeline:
         if not passing:
             return None
 
-        src = self._t(kf.cloud)
-        smask = self._t(kf.mask)
         B = self._icp_batch
         for c0 in range(0, len(passing), B):
             chunk = passing[c0:c0 + B]
             kfs = [self.keyframes[tid][f] for f, _ in chunk]
-            out = icp_point_to_plane(
-                src, smask, self._t(np.stack([k.cloud for k in kfs])),
-                self._t(np.stack([k.mask for k in kfs])),
-                self._t(np.stack([v["R"] for _, v in chunk])),
-                self._t(np.stack([v["t"] for _, v in chunk])),
-                icp_eigval=self.cfg.loop.icp_eigval)
-            oks = out["ok"].cpu().numpy()
+            oks, Rs, ts = self._icp_chunk(kf, chunk, kfs)
             if oks.any():
                 i = int(np.argmax(oks))
-                return (kfs[i],
-                        out["R"][i].cpu().numpy().astype(np.float64),
-                        out["t"][i].cpu().numpy().astype(np.float64))
+                return (kfs[i], Rs[i].astype(np.float64),
+                        ts[i].astype(np.float64))
         return None
 
     # -- pose graph ---------------------------------------------------------
@@ -399,12 +483,7 @@ class LoopPipeline:
 
         x1_R = self.scan_poses[self.cur_session][-1].R.copy()
         x1_p = self.scan_poses[self.cur_session][-1].p.copy()
-        R2, p2, _ = pg.solve_pose_graph_full(
-            self._t(R), self._t(p), self._t(ii, torch.int32),
-            self._t(jj, torch.int32), self._t(rel_R), self._t(rel_p),
-            self._t(W6), iters=6)
-        R2 = R2.cpu().numpy().astype(np.float64)
-        p2 = p2.cpu().numpy().astype(np.float64)
+        R2, p2 = self._solve_pose_graph(R, p, ii, jj, rel_R, rel_p, W6)
 
         # write back anchors, then interpolate the segment interiors
         for s in ids:

@@ -23,6 +23,13 @@ correction rebuilds the live map from keyframes and the corrected window,
 with the gravity-joint `_g_reloc` after a cross-session first contact)
 and `insert_keyframe_fixed` (mid-term keyframe reload); with
 `collect_clouds=True` every emitted ScanPose carries its scan's cloud.
+With step graphs the rebuild, the gravity-joint solve, a reload and an
+eviction are one replay each ("correction_SxN", "g_reloc",
+"keyframe_reload_N", "evict"). The rebuild has one shape whatever the
+number of keyframes and of valid window frames: the absent keyframes and
+the frames from `win_count` on are inserted all masked, which leaves
+every bit of the map as inserting nothing does (the frames' slots are
+empty in the new map).
 
 With `lba.mgsize > 1` a BA burst marginalizes `mgsize` frames, and the
 window refills over the next `mgsize - 1` scans through `_mega_accum`
@@ -47,7 +54,7 @@ from ..map import voxel_map as vm
 from ..ba import optimizers as opt
 from ..odom import iekf
 from ..ops.downsample import voxel_downsample
-from .graphs import StepGraph
+from .graphs import StepGraph, host_arrays
 
 # host-side fields a carry snapshot needs besides the device tensors
 CARRY_HOST_FIELDS = ("win_count", "init_done", "jour", "session",
@@ -66,12 +73,14 @@ def _np(x):
 def fetch(*xs):
     """One device-to-host copy of several tensors -> float32 numpy arrays
     of their shapes."""
-    flat = _np(torch.cat([x.reshape(-1).to(torch.float32) for x in xs]))
-    out, o = [], 0
-    for x in xs:
-        out.append(flat[o:o + x.numel()].reshape(x.shape))
-        o += x.numel()
-    return out
+    return host_arrays(*(x.to(torch.float32) for x in xs))
+
+
+# keyframe slots of a correction's map rebuild: the loop pipeline hands
+# over the current session's last 5 (`LoopPipeline._optimize`)
+MAP_KEYFRAMES = 5
+# the steady dispatches: one graph each, pools of their own
+_STEADY_GRAPHS = ("steady", "steady_k", "accum")
 
 
 def _roll(a, mg):
@@ -150,10 +159,15 @@ class SlamPipeline:
     alignment between the phases runs eagerly (a few dozen ops, whose
     capture costs more than it saves). The host reads a round's
     residuals and degeneracy in one copy and decides between rounds, as
-    both packages' loops do. The graphs persist across `reset` and share
-    one memory pool. `step_graphs=False` runs
-    the same steps eagerly, each returning a new carry, with bitwise the
-    same results."""
+    both packages' loops do. So do the loop-closure hooks: a correction's
+    map rebuild, its gravity-joint window solve, a keyframe reload and an
+    eviction (the counterparts of `_jit_push_fixed` + `_jit_push` +
+    `_jit_refresh`, `_jit_g_reloc`, `_jit_push_fixed_refresh` and
+    `_jit_evict`); the load check before an eviction (`_occ_counts`, three
+    sums every `evict_check_every` scans) runs eagerly. The graphs persist
+    across `reset`; the init and hook graphs share one memory pool.
+    `step_graphs=False` runs the same steps eagerly, each returning a new
+    carry, with bitwise the same results."""
 
     def __init__(self, cfg: SlamConfig, collect_clouds: bool = False,
                  device=None, step_graphs: bool = True):
@@ -190,12 +204,15 @@ class SlamPipeline:
             return fn(carry, self._eager_inputs[name])
         g = self._graphs.get(name)
         if g is None:
-            # the init path's graphs share one pool: they never run at
-            # once, and what one hands out is read (a round's residuals)
-            # or copied into the steady step's buffers (the map build's
-            # outputs) before another of them replays
+            # the init path's and the hooks' graphs share one pool: they
+            # never run at once, and what one hands out is read (a round's
+            # residuals, an eviction's drops), copied into the steady
+            # step's buffers (the map build's outputs) or is a carry (the
+            # hooks' maps, outside the pool) before another replays; the
+            # map build is captured before any hook, so no hook's capture
+            # takes the blocks of its outputs
             pool = None
-            if name.startswith("init_") and self.device.type == "cuda":
+            if name not in _STEADY_GRAPHS and self.device.type == "cuda":
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 pool = self._pool
@@ -665,21 +682,82 @@ class SlamPipeline:
         return vm.insert_fixed(levels, self.cfg.map, pts_world, tr, mask,
                                jour)
 
-    def _push_fixed_refresh(self, levels, pts_world, mask, jour, win, mp,
-                            win_count):
+    def _push_fixed_refresh(self, levels, pts_world, mask, jour):
         """insert_fixed + plane refresh of the touched voxels (a keyframe
-        reloaded in the steady phase must give matchable planes at once)."""
+        reloaded in the steady phase must give matchable planes at once).
+        The touched refit reads the running totals alone, no window pose."""
         tr = pts_world.new_zeros((pts_world.shape[0],))
         levels, touched = vm.insert_fixed_touched(
             levels, self.cfg.map, pts_world, tr, mask, jour)
-        return vm.refresh_planes(levels, self.cfg.map, win.R, win.p, mp,
-                                 win_count, touched=touched)
+        return vm.refresh_planes(levels, self.cfg.map, None, None, None,
+                                 None, touched=touched)
 
     def _occ_counts(self, levels):
         return torch.stack([torch.sum(lv.occ) for lv in levels])
 
-    def _evict(self, levels, jour):
-        return vm.evict(levels, jour, self.cfg.map.evict_dist)
+    def _correction_fn(self, carry, inputs):
+        """A loop correction's window and map, the counterpart of the JAX
+        package's `_jit_push_fixed`, `_jit_push` and `_jit_refresh` calls of
+        `apply_correction`: the window left-multiplied by dx (its gravity
+        too where g_update), then a new map of the keyframes' fixed points
+        and the corrected window's scans (frame i into slot i: the slot map
+        restarts at arange(W)), refreshed over the valid frames. carry
+        (levels, win); inputs the keyframes' world clouds (S, N, 3) and
+        masks (S, N), the window's scans (W, P, 3), masks (W, P) and noise
+        records (W, P, NV), scal [dx_R (9), dx_p (3), g_update, jour] and
+        nvalid (1,). Absent keyframes and the frames from nvalid on come
+        all masked; no extras."""
+        cfg = self.cfg
+        W = cfg.lba.win_size
+        _, win = carry
+        kf_wld, kf_mask, scans, masks, trs, scal, nvalid = inputs
+        dR, dp, jour = scal[0:9].reshape(3, 3), scal[9:12], scal[13]
+        g0 = win.g[0]
+        new_g = torch.where(scal[12] > 0, dR @ g0, g0)
+        win = dataclasses.replace(
+            win, R=dR[None] @ win.R, p=win.p @ dR.T + dp[None],
+            v=win.v @ dR.T, g=new_g.expand(win.g.shape).clone())
+        levels = vm.empty_map(cfg.map, self.device)
+        for s in range(kf_wld.shape[0]):
+            levels = self._push_fixed(levels, kf_wld[s], kf_mask[s], jour)
+        for i in range(W):
+            levels = self._push_window(levels, win[i], scans[i], masks[i],
+                                       trs[i], i, jour)
+        mp = torch.arange(W, dtype=torch.int32, device=self.device)
+        return (self._refresh(levels, win, mp, nvalid[0]), win), ()
+
+    def _g_reloc_fn(self, carry, inputs):
+        """After a cross-session correction, the counterpart of the JAX
+        package's `_jit_g_reloc` and the `_jit_refresh` after it: the
+        gravity-joint window BA on the rebuilt map over the first nvalid
+        frames, whose states it keeps (its gravity for every frame), then
+        the planes refit. carry (levels, win, preints); inputs nvalid
+        (1,); no extras."""
+        W = self.cfg.lba.win_size
+        levels, win, preints = carry
+        nvalid = inputs[0][0]
+        mp = torch.arange(W, dtype=torch.int32, device=self.device)
+        new_win, _, _ = self._g_reloc(levels, win, preints, mp, nvalid)
+        sel = torch.arange(W, device=self.device) < nvalid
+        win = tmap(lambda a, b: torch.where(
+            sel.reshape((-1,) + (1,) * (a.dim() - 1)), a, b), new_win, win)
+        win = dataclasses.replace(
+            win, g=new_win.g[0].expand(win.g.shape).clone())
+        return (self._refresh(levels, win, mp, nvalid), win, preints), ()
+
+    def _keyframe_reload_fn(self, carry, inputs):
+        """A keyframe folded into the live map, the counterpart of
+        `_jit_push_fixed_refresh`: carry (levels,); inputs the world cloud
+        (N, 3), its mask (N,) and jour (1,); no extras."""
+        wld, mask, jour = inputs
+        return (self._push_fixed_refresh(carry[0], wld, mask, jour[0]),), ()
+
+    def _evict_fn(self, carry, inputs):
+        """Distance eviction, the counterpart of `_jit_evict`: carry
+        (levels,); inputs jour (1,); extras (voxels dropped a level,)."""
+        levels, dropped = vm.evict(carry[0], inputs[0][0],
+                                   self.cfg.map.evict_dist)
+        return (levels,), (dropped,)
 
     # ------------------------------------------------------------------
     # host orchestration
@@ -1089,9 +1167,9 @@ class SlamPipeline:
             occ = _np(self._occ_counts(self.levels))
             load = occ / np.array(cfg.map.capacities, np.float64)
             if float(load.max()) > cfg.map.evict_load:
-                self.levels, edrop = self._evict(
-                    self.levels, torch.tensor(self.jour, dtype=torch.float32,
-                                              device=self.device))
+                (self.levels,), (edrop,) = self._run(
+                    "evict", self._evict_fn, (self.levels,),
+                    (np.array([self.jour], np.float32),))
                 evicted = True
                 evict_dropped = int(_np(edrop).sum())
         if out is not None:
@@ -1106,52 +1184,51 @@ class SlamPipeline:
         dx, rebuild the live map from the keyframes (fixed points) plus the
         corrected window scans, reset the slot indirection, and after a
         cross-session first contact (g_update) re-optimize the window
-        with gravity. The emitted ScanPoses were already moved by the loop
-        pipeline (shared objects)."""
+        with gravity. The rebuild is one dispatch (`_correction_fn`), the
+        gravity-joint solve another (`_g_reloc_fn`). The emitted ScanPoses
+        were already moved by the loop pipeline (shared objects)."""
         self._flush_pending()   # emit the pre-correction state first
         self._host_window()
         cfg = self.cfg
         W = cfg.lba.win_size
-        dR = self._t(dx_R)
-        dp = self._t(dx_p)
-        win = self.win
-        new_g = dR @ win.g[0] if g_update else win.g[0]
-        win = dataclasses.replace(
-            win, R=dR[None] @ win.R, p=win.p @ dR.T + dp[None],
-            v=win.v @ dR.T, g=new_g.expand(win.g.shape).clone())
-        self.win = win
-        self.mp = torch.arange(W, dtype=torch.int32, device=self.device)
         nvalid = self.win_count
-
-        self.levels = vm.empty_map(cfg.map, self.device)
-        for kf in map_keyframes:
-            wld = kf.cloud @ kf.R0.T + kf.p0
-            self.levels = self._push_fixed(self.levels, self._t(wld),
-                                           self._t(kf.mask), self.jour)
-        for i in range(nvalid):
-            self.levels = self._push_window(
-                self.levels, win[i], self._t(self.scan_buf[i]),
-                self._t(self.scan_mask[i]), self._t(self.scan_tr[i]),
-                self.mp[i], self.jour)
-        self.levels = self._refresh(self.levels, win, self.mp, nvalid)
+        f32 = np.float32
+        S = max(MAP_KEYFRAMES, len(map_keyframes))
+        N = max((len(kf.cloud) for kf in map_keyframes),
+                default=cfg.odom.point_max)
+        kf_wld = np.zeros((S, N, 3), f32)
+        kf_mask = np.zeros((S, N), f32)
+        for s, kf in enumerate(map_keyframes):
+            n = len(kf.cloud)
+            kf_wld[s, :n] = kf.cloud @ kf.R0.T + kf.p0
+            kf_mask[s, :n] = kf.mask
+        scans = np.zeros_like(self.scan_buf)
+        masks = np.zeros_like(self.scan_mask)
+        trs = np.zeros_like(self.scan_tr)
+        scans[:nvalid] = self.scan_buf[:nvalid]
+        masks[:nvalid] = self.scan_mask[:nvalid]
+        trs[:nvalid] = self.scan_tr[:nvalid]
+        scal = np.concatenate([np.asarray(dx_R, f32).reshape(-1),
+                               np.asarray(dx_p, f32),
+                               [bool(g_update), self.jour]]).astype(f32)
+        nv = np.array([nvalid], np.int64)
+        (self.levels, self.win), _ = self._run(
+            f"correction_{S}x{N}", self._correction_fn,
+            (self.levels, self.win),
+            (kf_wld, kf_mask, scans, masks, trs, scal, nv))
+        self.mp = torch.arange(W, dtype=torch.int32, device=self.device)
 
         if (g_update and self.init_done and nvalid >= 2
                 and getattr(self, "preints_dev", None) is not None):
             # preints_dev entry k is pair (k, k+1); stale tail entries
             # (>= nvalid - 1) are masked inside _g_reloc
-            new_win, _, _ = self._g_reloc(self.levels, win, self.preints_dev,
-                                          self.mp, nvalid)
-            sel = torch.arange(W, device=self.device) < nvalid
-            win = tmap(lambda a, b: torch.where(
-                sel.reshape((-1,) + (1,) * (a.dim() - 1)), a, b), new_win, win)
-            win = dataclasses.replace(
-                win, g=new_win.g[0].expand(win.g.shape).clone())
-            self.win = win
-            self._gravity = new_win.g[0]
-            self.levels = self._refresh(self.levels, win, self.mp, nvalid)
+            (self.levels, self.win, _), _ = self._run(
+                "g_reloc", self._g_reloc_fn,
+                (self.levels, self.win, self.preints_dev), (nv,))
+            self._gravity = self.win.g[0].clone()
 
         self.x = dataclasses.replace(
-            win[max(nvalid - 1, 0)], cov=self.x.cov, t=self.x.t,
+            self.win[max(nvalid - 1, 0)], cov=self.x.cov, t=self.x.t,
             bg=self.x.bg, ba=self.x.ba)
         if self._last_p is not None:
             self._last_p = np.asarray(dx_R @ self._last_p + dx_p)
@@ -1159,11 +1236,13 @@ class SlamPipeline:
     def insert_keyframe_fixed(self, kf) -> None:
         """Mid-term association: fold one historical keyframe cloud into
         the live map as fixed statistics (reference keyframe_loading,
-        voxelslam.cpp:1379-1438), refreshing the touched planes."""
-        wld = kf.cloud @ kf.R0.T + kf.p0
-        self.levels = self._push_fixed_refresh(
-            self.levels, self._t(wld), self._t(kf.mask), self.jour,
-            self.win, self.mp, self.win_count)
+        voxelslam.cpp:1379-1438), refreshing the touched planes; one
+        dispatch (`_keyframe_reload_fn`)."""
+        wld = (kf.cloud @ kf.R0.T + kf.p0).astype(np.float32)
+        (self.levels,), _ = self._run(
+            f"keyframe_reload_{len(wld)}", self._keyframe_reload_fn,
+            (self.levels,), (wld, np.asarray(kf.mask, np.float32),
+                             np.array([self.jour], np.float32)))
 
     def flush(self):
         """Emit the remaining window states as ScanPoses (end of run)."""

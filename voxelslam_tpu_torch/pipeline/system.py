@@ -51,15 +51,17 @@ class SlamSystem:
                  step_graphs: bool = True):
         """previous_maps: prior session names under `savepath` to load and
         relocalize against (the reference's General/previous_map param,
-        voxelslam.cpp:282-308). step_graphs: the odometry's steady steps
-        and the GBA's rounds and condenses as CUDA graph replays (both
-        `SlamPipeline`'s and `HbaRunner`'s flag)."""
+        voxelslam.cpp:282-308). step_graphs: the odometry's steps, the
+        loop closure's programs and the GBA's rounds and condenses as CUDA
+        graph replays (`SlamPipeline`'s, `LoopPipeline`'s and
+        `HbaRunner`'s flag)."""
         self.cfg = cfg
         self.savepath = savepath
         self.device = resolve_device(device)
         self.odom = SlamPipeline(cfg, collect_clouds=enable_loop,
                                  device=self.device, step_graphs=step_graphs)
-        self.loop = (LoopPipeline(cfg, device=self.device) if enable_loop
+        self.loop = (LoopPipeline(cfg, device=self.device,
+                                  step_graphs=step_graphs) if enable_loop
                      else None)
         self.session_names: list[str] = []
         if self.loop is not None:

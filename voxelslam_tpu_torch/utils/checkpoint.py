@@ -40,7 +40,9 @@ FORMAT_VERSION = 2   # the port's own format, numbered apart from the JAX
 # odometry's dispatch widths and step graphs (rebuilt at the first
 # dispatch after a load; the loaded carry is copied into their buffers)
 # with the inputs its eager steps keep between the rounds of an init,
-# the GBA runner's step graphs and their memory pool (rebuilt at first
+# the loop pipeline's step graphs and their pool (rebuilt at first use;
+# the host copies what a call hands out at once), the GBA runner's step
+# graphs and their memory pool (rebuilt at first
 # use; what a window, batch or condense left in flight is a copy, not a
 # graph's buffer), and the GBA's mesh (it holds the process group) and
 # batch width, which come from the loading system's constructor
