@@ -798,7 +798,7 @@ def profile_scans(pipe, packets, phases=None):
     graphs, copies, fills) a scan, kernels and device busy time a scan and
     share, the kernels that take the most device time, and the device time
     of the kernels under each `stage:NAME` profiler range a caller opened
-    (`tools/profile_torch_slice.py`). Returns (summary, [(kernel, calls,
+    (`InitProbe`'s knn ranges). Returns (summary, [(kernel, calls,
     device us)])."""
     import torch
     from torch.profiler import profile, ProfilerActivity
@@ -1543,8 +1543,9 @@ def verify_split(split):
     import inspect
     from voxelslam_tpu_torch.loop import btc
     real = btc.DescriptorDB.verify
-    code = real.__code__
-    lines, first = inspect.getsourcelines(real)
+    body = btc.DescriptorDB._verify     # verify's work, under its span
+    code = body.__code__
+    lines, first = inspect.getsourcelines(body)
     part_of, part = {}, "other"
     for i, text in enumerate(lines):
         t = text.strip()

@@ -29,6 +29,7 @@ from voxelslam_tpu_torch.parallel.multihost import global_win_mesh
 from voxelslam_tpu_torch.pipeline.loop import LoopPipeline
 from voxelslam_tpu_torch.pipeline.odometry import ScanPose
 from voxelslam_tpu_torch.pipeline.system import SlamSystem
+from voxelslam_tpu_torch.utils import telemetry
 
 from test_torch_gba import (GBA, N_KF, _runner_kw, assert_edges_close,
                             fill_loop, jax_stream, make_keyframes, port_cfg,
@@ -190,6 +191,25 @@ def test_fleet_graphed_equals_eager(kfs):
     assert set(a._graphs) == {("batch", 2, W, 1024), ("outputs", 2, W)}
     assert a._graphs[("batch", 2, W, 1024)].calls == \
         sum(w["rounds"] for w in a.window_log)
+
+
+def test_telemetry_counts_windows_and_rounds(kfs):
+    """With telemetry on, each window step is a `gba.window` span and
+    counts in `gba.windows`, its rounds in `gba.rounds`, as the window
+    log has them."""
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        r = runner(True)
+        stream(r, kfs)
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    log = r.window_log
+    assert snap["counters"]["gba.windows"] == len(log) > 0
+    assert snap["counters"]["gba.rounds"] == sum(w["rounds"] for w in log)
+    assert snap["spans"]["gba.window"]["count"] == len(log)
 
 
 def test_graphed_functions_read_nothing_back(kfs):

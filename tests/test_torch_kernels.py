@@ -246,8 +246,10 @@ def test_insert_scan_fused_on_card_matches_cpu():
         for f, tol in (("n", 1e-5), ("mu", 2e-4), ("S", 2e-3)):
             np.testing.assert_allclose(n(getattr(lb.win, f)),
                                        n(getattr(la.win, f)), atol=tol)
-    for (sa, va, _), (sb, vb, _) in zip(out["cpu"][1], out["cuda"][1]):
+    for (sa, va, _, ua), (sb, vb, _, ub) in zip(out["cpu"][1],
+                                                 out["cuda"][1]):
         assert torch.equal(sa, sb.cpu()) and torch.equal(va, vb.cpu())
+        assert int(ua) == int(ub)       # points dropped past unique_max
 
 
 @pytest.mark.cuda

@@ -126,8 +126,11 @@ def test_one_steady_step_from_shared_carry(jax_run):
 
     x_j, lv_j, win_j, mp_j, _, ring_j = rec["out"]
     ring_t = n(pipe._pending[0])
-    assert ring_t.shape == ring_j.shape == (1, pipe._stats_len)
-    a, b = ring_j[0], ring_t[0]
+    # the port's row ends with one more count: the points the dedup
+    # dropped past unique_max (none here)
+    assert ring_t.shape == (1, pipe._stats_len) == (1, ring_j.shape[1] + 1)
+    assert ring_t[0, -1] == 0.0
+    a, b = ring_j[0], ring_t[0, :-1]
     assert a[0] == b[0] == 1.0                       # ok (divergence gate)
     assert abs(a[1] - b[1]) <= 2, (a[1], b[1])       # iEKF matches of ~500
     np.testing.assert_allclose(b[2], a[2], rtol=1e-3)        # nnt eig0

@@ -7,18 +7,29 @@ Run from the repository root:  python3 tools/profile_torch_slice.py
 
 Drives `SlamPipeline.process_scan` of `voxelslam_tpu_torch` at bench.py's
 configuration and scene (the same as chip_smoke.py) through init and a
-warm-up, once each way, then measures the steady scans:
+warm-up, then measures the steady scans:
 
-  1. wall clock per scan (synchronised), no instrumentation, both ways;
-  2. eager, per stage of `_steady_megastep`: each stage function wrapped
-     in synchronise + host clock (the sum exceeds 1. by the added syncs);
-  3. torch.profiler over a few steady scans, both ways: device busy share
-     (sum of kernel time over wall time; one stream, so kernels do not
-     overlap), kernel launches, host calls into the CUDA runtime that
-     launch work (kernels, graphs, copies) per scan, the kernels that take
-     the most device time; eager, with each stage a profiler range, the
-     device time of each stage's kernels: a graph replays those same
-     kernels, so that is the graphed scan's per-stage picture;
+  1. wall clock per scan (synchronised), no instrumentation: graphed with
+     telemetry off, graphed with telemetry on (`utils.telemetry`, enabled
+     before the pipeline is built), eager;
+  2. graphed, from the program's telemetry over the same scans: the
+     device ms of each stage of the steady step (the stage marks the
+     "steady_k" graph captured, summed over its K unrolled steps) beside
+     the replays' event-timed device ms (the marks must sum to it), the
+     host's spans a scan (`odom`, `odom.pack`, `odom.emit`,
+     `odom.readback`, `graph:steady_k`), and the program's counters over
+     those scans (points dropped past `point_max` and `unique_max`,
+     voxels the hash could not place, the emission's window and hold,
+     the kernels' launches and bytes);
+  3. torch.profiler over a few steady scans, graphed (telemetry on) and
+     eager: device busy share (sum of kernel time over wall time; one
+     stream, so kernels do not overlap), kernel launches, host calls into
+     the CUDA runtime that launch work (kernels, graphs, copies) per scan,
+     the kernels that take the most device time; graphed, csrc/
+     segment_add.cu's share of its bytes roofline: the bytes its calls
+     need (the telemetry counter `kernel.segment_add.bytes`) over the HBM
+     peak, over its kernels' profiled time, and every kernel name that
+     holds `sum_kernel` or `partition_kernel` (only segment_add.cu's may);
   4. graphed: the device time of one replay of the step graph (CUDA
      events), and the graph's capture seconds.
 
@@ -34,6 +45,7 @@ Needs a GPU; exits non-zero without one.
 """
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -41,10 +53,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 N_WARM, N_STEADY, N_PROF = 22, 24, 8
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet, 700 W
+# csrc/segment_add.cu's kernels as the profiler names them (templates in
+# the file's anonymous namespace)
+SEGMENT_ADD = re.compile(
+    r"^(void )?(\(anonymous namespace\)::)?(sum_kernel|partition_kernel)<")
+HOST_SPANS = ("odom", "odom.pack", "odom.emit", "odom.readback",
+              "graph:steady_k")
 
 
 def moments_kernel(kernels, capture):
-    """4.: the kernel's profiled device time per call against its event
+    """5.: the kernel's profiled device time per call against its event
     times on the captured inputs (microseconds)."""
     import torch
     import chip_smoke as cs
@@ -64,28 +83,22 @@ def moments_kernel(kernels, capture):
     }
 
 
-STAGES = [("ekf", "propagate"), ("ekf", "deskew"),
-          ("odo", "voxel_downsample"), ("pre", "integrate"),
-          ("iekf", "iekf_update"), ("vm", "insert_scan_fused"),
-          ("vm", "refresh_planes"), ("vm", "harvest_t"), ("opt", "lm_li"),
-          ("vm", "marginalize")]
-
-
-def _patched(wrap):
-    """Replace each stage function of the steady step by wrap(name, fn);
-    returns the list to restore."""
-    from voxelslam_tpu_torch.pipeline import odometry as odo
-    mods = {"ekf": odo.ekf, "odo": odo, "pre": odo.pre, "iekf": odo.iekf,
-            "vm": odo.vm, "opt": odo.opt}
-    saved = [(mods[m], name, getattr(mods[m], name)) for m, name in STAGES]
-    for mod, name, fn in saved:
-        setattr(mod, name, wrap(name, fn))
-    return saved
-
-
-def _restore(saved):
-    for mod, name, fn in saved:
-        setattr(mod, name, fn)
+def segment_add_roofline(kernels, nbytes):
+    """3.: the share of its bytes roofline csrc/segment_add.cu's kernels
+    reach in a profile whose calls needed `nbytes`, and the kernel names
+    that could be taken for them."""
+    mine = [k for k in kernels if SEGMENT_ADD.match(k[0])]
+    us = sum(k[2] for k in mine)
+    return {
+        "kernels": sorted({k[0][:160] for k in mine}),
+        "lookalikes": sorted({k[0][:160] for k in kernels
+                              if ("sum_kernel" in k[0]
+                                  or "partition_kernel" in k[0])
+                              and not SEGMENT_ADD.match(k[0])}),
+        "calls": sum(k[1] for k in mine), "device_us": us, "bytes": nbytes,
+        "roofline_pct": (100.0 * nbytes / HBM_BYTES_PER_S / (us * 1e-6)
+                         if us else None),
+    }
 
 
 def _plain_ms(pipe, packets):
@@ -98,23 +111,34 @@ def _plain_ms(pipe, packets):
     return 1e3 * (time.perf_counter() - t0) / len(packets)
 
 
-def _profile(pipe, packets, ranges=False):
-    """3.: `chip_smoke.profile_scans` over the packets (a whole number of
-    batches); with `ranges`, each stage a profiler range."""
-    import chip_smoke as cs
-    from torch.profiler import record_function
+def _warm(cfg, packets, **kw):
+    from voxelslam_tpu_torch.pipeline import SlamPipeline
+    pipe = SlamPipeline(cfg, collect_clouds=False, **kw)
+    for pkt in packets[:N_WARM]:
+        pipe.process_scan(*pkt)
+    assert pipe.init_done
+    return pipe
 
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(f"stage:{name}"):
-                return fn(*a, **kw)
-        return run
-    saved = _patched(ranged) if ranges else []
-    try:
-        summary, kernels = cs.profile_scans(pipe, packets)
-    finally:
-        _restore(saved)
-    return kernels, summary
+
+def program_split(snap, n_scans):
+    """2.: the steady graph's stage marks and event pairs, and the host's
+    spans, a scan; the counters over the scans."""
+    g = snap["graphs"]["steady_k"]
+    stages = {k: v / n_scans for k, v in g["stages"].items()}
+    device = g["device_ms"] / n_scans
+    return {
+        "replays": g["replays"], "sampled": g["sampled"],
+        "unsampled": g["unsampled"],
+        "stage_device_ms_per_scan": stages,
+        "stages_sum_ms_per_scan": sum(stages.values()),
+        "replay_device_ms_per_scan": device,
+        "host_ms_per_scan": {k: {"total": snap["spans"][k]["total_ms"]
+                                 / n_scans,
+                                 "self": snap["spans"][k]["self_ms"]
+                                 / n_scans}
+                             for k in HOST_SPANS if k in snap["spans"]},
+        "counters": dict(snap["counters"]),
+    }
 
 
 def main():
@@ -122,7 +146,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: needs a GPU")
     import chip_smoke as cs
-    from voxelslam_tpu_torch.pipeline import SlamPipeline
+    from voxelslam_tpu_torch.utils import telemetry
 
     cfg = cs.bench_config()
     K = cfg.odom.batch_scans                   # scans a dispatch
@@ -132,43 +156,34 @@ def main():
     res = {"config": "bench.py", "batch_scans": K,
            "deterministic_algorithms": False}
 
-    # graphed (the default), before any stage function is patched
-    pipe = SlamPipeline(cfg, collect_clouds=False)
-    for pkt in packets[:N_WARM]:
-        pipe.process_scan(*pkt)
-    assert pipe.init_done
+    # graphed, telemetry off: 1.
+    pipe = _warm(cfg, packets)
+    res["graphed_off"] = {"steady_ms_per_scan": _plain_ms(pipe, steady)}
+    del pipe
+
+    # graphed, telemetry on from before the build: 1., 2., 3., 4.
+    telemetry.enable()
+    pipe = _warm(cfg, packets)
+    telemetry.reset()
     g = {"steady_ms_per_scan": _plain_ms(pipe, steady)}
-    g.update(_profile(pipe, prof_pk)[1])
+    g.update(program_split(telemetry.snapshot(), N_STEADY))
+    telemetry.reset()
+    summary, kernels = cs.profile_scans(pipe, prof_pk)
+    g.update(summary)
+    g["segment_add"] = segment_add_roofline(
+        kernels, telemetry.snapshot()["counters"].get(
+            "kernel.segment_add.bytes", 0))
+    telemetry.disable()
     graph = pipe._graphs["steady_k"]
     g["replay_device_ms"] = cs.replay_ms(graph.graph)
     g["capture_s"] = graph.capture_s
     res["graphed"] = g
     del pipe, graph
 
-    # eager: 1., 2. (stage clocks), 3. with stage ranges
-    pipe = SlamPipeline(cfg, collect_clouds=False, step_graphs=False)
-    for pkt in packets[:N_WARM]:
-        pipe.process_scan(*pkt)
-    half = N_STEADY // 2
-    e = {"steady_ms_per_scan": _plain_ms(pipe, steady[:half])}
-    stages = {}
-
-    def clocked(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            s = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + time.perf_counter() - s
-            return out
-        return run
-    saved = _patched(clocked)
-    e["clocked_ms_per_scan"] = _plain_ms(pipe, steady[half:])
-    _restore(saved)
-    n_clocked = N_STEADY - half
-    e["stage_ms_per_scan"] = {k: 1e3 * v / n_clocked for k, v in sorted(
-        stages.items(), key=lambda kv: -kv[1])}
-    kernels, prof = _profile(pipe, prof_pk, ranges=True)
+    # eager: 1., 3.
+    pipe = _warm(cfg, packets, step_graphs=False)
+    e = {"steady_ms_per_scan": _plain_ms(pipe, steady)}
+    kernels, prof = cs.profile_scans(pipe, prof_pk)[::-1]
     e.update(prof)
     res["eager"] = e
     capture = []

@@ -67,9 +67,10 @@ from ..map import voxel_map as vm
 from ..ba import optimizers as opt
 from ..parallel.dist_gba import (all_pairs_edges, condense_window,
                                  make_window_fleet)
-from ..pipeline.graphs import StepGraph
+from ..pipeline.graphs import StepGraph, graph_name
 from ..pipeline.loop import Keyframe, LoopEdge
 from ..pipeline.odometry import fetch, resolve_device
+from ..utils import telemetry
 
 CONV_THR = 0.05
 
@@ -142,7 +143,8 @@ class HbaRunner:
             if self._pool is None and self.device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
             g = self._graphs[key] = StepGraph(make(), self.device,
-                                              pool=self._pool)
+                                              pool=self._pool,
+                                              name=graph_name(key))
         return g
 
     # -- window step --------------------------------------------------------
@@ -218,6 +220,7 @@ class HbaRunner:
         return self._graph(("step", W, factor_max, fine),
                            lambda: self._round_fn(W, factor_max, fine))
 
+    @telemetry.spanned("gba.window")
     def _window_step(self, clouds, masks, Rs, ps, wmask, factor_max: int):
         """Convergence-driven coarse->fine window BA (reference
         HBA_add_edge, voxelslam.cpp:2871-2917): coarse GBA voxel params
@@ -247,6 +250,8 @@ class HbaRunner:
             it += 1
         self.window_log.append(dict(W=W, rounds=it, phases=phases,
                                     syncs=self.host_syncs - syncs0))
+        telemetry.count("gba.windows")
+        telemetry.count("gba.rounds", it)
         return tuple(x.clone() for x in carry + (H,)) + (r0_first,
                                                           r1.clone())
 

@@ -38,6 +38,7 @@ import torch
 from ..core.eig3 import eigh3_forward
 from ..core.tensors import drop_add
 from ..ops import voxel_hash as vh
+from ..utils import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -658,6 +659,7 @@ class DescriptorDB:
         tot = b1.sum() + b2.sum()
         return 2.0 * inter / max(tot, 1e-6)
 
+    @telemetry.spanned("loop.search")
     def search(self, desc, skip_near: int = 10, current_frame: int = 1 << 30,
                binary_thr: float | None = None):
         """Vote candidate frames for a query keyframe; a side-hash hit only
@@ -708,12 +710,21 @@ class DescriptorDB:
             out.append((f, n_votes, m))
         return out
 
+    @telemetry.spanned("loop.verify")
     def verify(self, desc, cand_frame: int, matches):
         """Geometric verification: RANSAC over the collision set (each
         matched triangle pair is a rigid-transform hypothesis, the
         `ransac_hyps` most code-similar ones are tried, agreement counts
         distinct query triangles within vertex_tol), then the plane-overlap
-        score of the best consensus hypotheses (BTC.cpp:1281-1479)."""
+        score of the best consensus hypotheses (BTC.cpp:1281-1479).
+        Counts `verify.calls`, `verify.pairs` (M), `verify.hypotheses` (H),
+        `verify.tests` (H x M agreement tests) and `verify.passed`."""
+        best = self._verify(desc, cand_frame, matches)
+        telemetry.count("verify.calls")
+        telemetry.count("verify.passed", int(best is not None))
+        return best
+
+    def _verify(self, desc, cand_frame: int, matches):
         cfg = self.cfg
         q = {k: np.asarray(v) for k, v in desc.items()}
         t_ = self.frames[cand_frame]
@@ -731,6 +742,9 @@ class DescriptorDB:
         sims = 2.0 * inter / np.maximum(qb.sum(-1) + tb.sum(-1), 1e-6)
         H = min(cfg.ransac_hyps, M)
         hyp = np.argsort(-sims)[:H]
+        telemetry.count("verify.pairs", M)
+        telemetry.count("verify.hypotheses", H)
+        telemetry.count("verify.tests", H * M)
 
         # batched Kabsch over hypothesis pairs
         src = sv[hyp]

@@ -327,9 +327,13 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
     (`ops.moments.accumulate`: the CUDA kernel on the GPU). Same
     semantics as `insert_scan_touched`: per-point rows are packed
     relative to their voxel centre and re-centred to the scan mean in
-    closed form after the sum. (R, p) is the scan pose."""
+    closed form after the sum. (R, p) is the scan pose. Each level's
+    touched entry also counts the valid points the dedup dropped past
+    the level's `unique_max`: (slots, valid, dropped, unique_dropped)."""
     P = pts_world.shape[0]
     nv_pt = expand_noise(tr_pt)
+    valid = mask > 0
+    n_valid = torch.sum(valid, dtype=torch.int32)
     pre, slots_l, upds_l = [], [], []
     for l, lv in enumerate(levels):
         if lv.tsl.shape[1]:
@@ -337,13 +341,14 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
         C = lv.keys.shape[0]
         size = cfg.level_size(l)
         keys = vh.voxel_key(pts_world, size)
-        uniq, uvalid, inv = vh.dedup_keys(keys, mask > 0,
+        uniq, uvalid, inv = vh.dedup_keys(keys, valid,
                                           min(cfg.unique_max[l], P))
         tkeys, occ, uslots = vh.insert(lv.keys, lv.occ, uniq, uvalid)
         inv = inv.long()
+        kept = inv >= 0                 # valid and within unique_max
         us = uslots.long()
-        pslot = torch.where(inv >= 0, us[torch.clamp(inv, min=0)], -1)
-        ok = (mask > 0) & (pslot >= 0)
+        pslot = torch.where(kept, us[torch.clamp(inv, min=0)], -1)
+        ok = valid & (pslot >= 0)
         w = ok.to(pts_local.dtype)
         center_w = (keys.to(pts_world.dtype) + 0.5) * size
         q = (pts_world - center_w) @ R                  # R^T (pw - c)
@@ -351,7 +356,8 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
         upds_l.append(mo.pack_updates(q, nv_pt, w))
         newly = uvalid & (us >= 0) & ~lv.occ[torch.clamp(us, min=0)]
         dropped = torch.sum((uvalid & (us < 0)).to(torch.int32))
-        pre.append((tkeys, occ, uslots, us, uvalid, newly, dropped))
+        udrop = n_valid - torch.sum(kept, dtype=torch.int32)
+        pre.append((tkeys, occ, uslots, us, uvalid, newly, dropped, udrop))
 
     accs = mo.accumulate(torch.stack(slots_l).contiguous(),
                          torch.stack(upds_l).contiguous(),
@@ -361,7 +367,7 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
     for l, (lv, acc) in enumerate(zip(levels, accs)):
         C = lv.keys.shape[0]
         size = cfg.level_size(l)
-        tkeys, occ, uslots, us, uvalid, newly, dropped = pre[l]
+        tkeys, occ, uslots, us, uvalid, newly, dropped, udrop = pre[l]
         n_add = acc[:, 0]
         has = n_add > 0
         delta = acc[:, 1:4] / torch.clamp(n_add, min=1.0)[:, None]
@@ -389,7 +395,7 @@ def insert_scan_fused(levels, cfg: MapConfig, pts_world, pts_local, tr_pt,
         out.append(dataclasses.replace(
             lv, keys=tkeys, occ=occ, win=win, win_nv=win_nv, tot=tot,
             tot_nv=tot_nv, jour=jour_arr))
-        touched.append((uslots, uvalid & (us >= 0), dropped))
+        touched.append((uslots, uvalid & (us >= 0), dropped, udrop))
     return tuple(out), touched
 
 

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import telemetry
+
 CH = 16              # channels per slot (1 + 3 + 6 + 5 + 1 pad)
 SLOTS_PER_ROW = 8    # table capacities must be multiples of this
 MAX_LEVELS = 8       # levels one launch can take (csrc MAX_LEVELS)
@@ -36,27 +38,38 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 
 class _Counter:
-    """Kernel executions of one wrapper's kernel. A launch made while the
+    """Kernel executions of one wrapper's kernels. A launch made while the
     current stream is being captured into a CUDA graph counts in
-    `captured`, not in `launches`: `pipeline.graphs.StepGraph` adds the
-    launches its capture recorded to `launches` at every replay, so
-    `launches` counts the kernel's runs on the card."""
+    `captured` (its bytes in `captured_bytes`), not in `launches`:
+    `pipeline.graphs.StepGraph` adds what its capture recorded at every
+    replay (`replayed`), so `launches` counts the kernels' runs on the
+    card. Each run also counts in the telemetry counters
+    `<name>.launches` and `<name>.bytes` (`utils.telemetry`)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.launches = 0
         self.captured = 0
+        self.captured_bytes = 0
 
     def reset(self):
         self.launches = 0
 
-    def add(self):
+    def add(self, nbytes: int = 0):
         if torch.cuda.is_current_stream_capturing():
             self.captured += 1
+            self.captured_bytes += nbytes
         else:
-            self.launches += 1
+            self.replayed(1, nbytes)
+
+    def replayed(self, launches: int, nbytes: int = 0):
+        self.launches += launches
+        telemetry.count(self.name + ".launches", launches)
+        if nbytes:
+            telemetry.count(self.name + ".bytes", nbytes)
 
 
-counter = _Counter()
+counter = _Counter("kernel.moments")
 _lib = None
 
 

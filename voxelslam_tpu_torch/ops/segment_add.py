@@ -44,7 +44,7 @@ TILE_BYTES = 64 << 10        # most bytes of a block's tile
 STASH_BYTES = 16 << 10       # bytes of staged val rows a block aims at
 ONE_LAUNCH_IDX_BYTES = 16 << 20   # idx bytes all path-1 blocks may read
 
-counter = _Counter()
+counter = _Counter("kernel.segment_add")
 _lib = None
 
 
@@ -210,9 +210,18 @@ def launch(buf2: torch.Tensor, idx: torch.Tensor, val2: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"segment_add kernel launch failed: cudaError "
                            f"{err}")
-    for _ in range(pl.launches):
+    counter.add(call_bytes(C, N, D, buf2.element_size(), idx.element_size(),
+                           zero))
+    for _ in range(pl.launches - 1):
         counter.add()
     return pl
+
+
+def call_bytes(C: int, N: int, D: int, esz: int, isz: int,
+               zero: bool = False) -> int:
+    """Bytes one call needs at least: val (N, D) and idx (N,) read, buf
+    (C, D) read unless `zero`, out (C, D) written, each once."""
+    return (N * D + C * D * (1 if zero else 2)) * esz + N * isz
 
 
 def segment_add(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,

@@ -40,9 +40,17 @@ an extra it keeps before another graph of the pool replays (the static
 carry and inputs are allocated outside every pool).
 
 Kernel launch counters (`ops.moments.counter`, `ops.segment_add.counter`)
-record a capture's launches apart; each replay adds them, so the counters
-count kernel executions. `capture_s` and `capture_bytes` (the device
-memory the capture reserved: its pool's growth) describe the capture.
+record a capture's launches and bytes apart; each replay adds them, so the
+counters count kernel executions. `capture_s` and `capture_bytes` (the
+device memory the capture reserved: its pool's growth) describe the
+capture.
+
+With telemetry on (`utils.telemetry`), a call is the span
+`graph:<name>`, and each dispatch on the card (a replay, or a capture's
+eager warm-up) is timed by a pair of CUDA events that are read later,
+never waited for; the graph's name also counts its captures, their
+seconds and the host's ms staging numpy inputs. A capture made with
+telemetry on keeps the step's stage marks (`telemetry.mark`).
 """
 
 from __future__ import annotations
@@ -55,8 +63,14 @@ import torch
 
 from ..core.tensors import tmap
 from ..ops import moments, segment_add
+from ..utils import telemetry
 
 COUNTERS = (moments.counter, segment_add.counter)
+
+
+def graph_name(key) -> str:
+    """A cache key of step graphs ("steady", ("icp", 4)) as a name."""
+    return key if isinstance(key, str) else "_".join(str(k) for k in key)
 
 
 def leaves(tree) -> list:
@@ -101,8 +115,9 @@ class StepGraph:
     """`fn(carry, inputs)` over static buffers, one CUDA graph replay a
     call on the card (see the module docstring)."""
 
-    def __init__(self, fn, device, pool=None):
+    def __init__(self, fn, device, pool=None, name=None):
         self.fn = fn
+        self.name = name or getattr(fn, "__name__", "step")
         self.device = torch.device(device)
         self.pool = pool
         self.calls = 0
@@ -112,6 +127,9 @@ class StepGraph:
         self.extras = None
         self.graph = None
         self.captured_launches = None
+        self.captured_bytes = None
+        self.marks = None           # the capture's stage marks
+        self._last = None           # the last timed replay (telemetry)
         self.capture_s = None
         self.capture_bytes = None   # device memory the capture reserved
         self._staging = None
@@ -122,6 +140,10 @@ class StepGraph:
         """carry: the caller's carry tree; inputs: numpy arrays, tensors
         on the device, or None to keep the last call's. Returns (static
         carry tree, extras)."""
+        with telemetry.span("graph:" + self.name):
+            return self._call(carry, inputs)
+
+    def _call(self, carry, inputs):
         src = leaves(carry)
         if self.tree is None:
             if inputs is None:
@@ -135,7 +157,14 @@ class StepGraph:
             raise ValueError("the carry's structure, shapes or dtypes differ "
                              "from the captured step's")
         assign(self.static, src)
-        self._stage(inputs)
+        tel = telemetry.state()
+        if inputs is not None and tel.on():
+            t0 = time.perf_counter()
+            self._stage(inputs)
+            tel.graph_add(self.name, "host_ms",
+                          1e3 * (time.perf_counter() - t0))
+        else:
+            self._stage(inputs)
         if self.device.type != "cuda":
             out = self._step()
             if self.extras is None:
@@ -144,9 +173,13 @@ class StepGraph:
             return self.tree, self.extras
         if self.graph is None:
             return self.tree, self._warm_and_capture()
+        tel.replay_again(self._last)
+        begin = tel.dispatch_begin()
         self.graph.replay()
-        for c, n in zip(COUNTERS, self.captured_launches):
-            c.launches += n
+        self._last = tel.dispatch_end(self.name, begin, self.marks)
+        for c, n, b in zip(COUNTERS, self.captured_launches,
+                           self.captured_bytes):
+            c.replayed(n, b)
         return self.tree, self.extras
 
     def _allocate(self, carry, inputs):
@@ -198,16 +231,19 @@ class StepGraph:
         return tuple(extras)
 
     def _warm_and_capture(self):
+        tel = telemetry.state()
+        begin = tel.dispatch_begin()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             first = self._step()              # this dispatch's step
         main = torch.cuda.current_stream()
         main.wait_stream(side)
+        tel.dispatch_end(self.name, begin)
         for e in leaves(first):
             e.record_stream(main)
         t0 = time.perf_counter()
-        before = [c.captured for c in COUNTERS]
+        before = [(c.captured, c.captured_bytes) for c in COUNTERS]
         graph = torch.cuda.CUDAGraph()
         # a garbage collection inside the capture could free a dead
         # object's graph, whose destruction the capture refuses (it is
@@ -215,17 +251,23 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            with tel.capture_marks() as marks, torch.cuda.graph(
+                    graph, pool=self.pool, stream=side,
+                    capture_error_mode="thread_local"):
                 # after the context's empty_cache: the pool's growth
                 reserved = torch.cuda.memory_reserved(self.device)
                 self.extras = self._step()
         finally:
             if collecting:
                 gc.enable()
-        self.captured_launches = [c.captured - b
+        self.captured_launches = [c.captured - b[0]
                                   for c, b in zip(COUNTERS, before)]
+        self.captured_bytes = [c.captured_bytes - b[1]
+                               for c, b in zip(COUNTERS, before)]
+        self.marks = marks or None
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
         self.capture_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        tel.graph_add(self.name, "captures", 1)
+        tel.graph_add(self.name, "capture_s", self.capture_s)
         return first

@@ -50,7 +50,8 @@ from ..loop import posegraph as pg
 from ..loop.btc import BtcConfig, DescriptorDB, extract as btc_extract
 from ..loop.icp import icp_point_to_plane
 from ..ops.downsample import voxel_downsample
-from .graphs import StepGraph, host_arrays
+from ..utils import telemetry
+from .graphs import StepGraph, graph_name, host_arrays
 from .odometry import resolve_device
 
 # the descriptor arrays `btc.extract` returns, in the keyframe graph's order
@@ -150,7 +151,8 @@ class LoopPipeline:
             if self.device.type == "cuda" and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             g = self._graphs[key] = StepGraph(fn, self.device,
-                                              pool=self._pool)
+                                              pool=self._pool,
+                                              name=graph_name(key))
         return g((), inputs)[1]
 
     def pool_bytes(self) -> int:
@@ -202,6 +204,7 @@ class LoopPipeline:
         desc = btc_extract(down, dmask, self.btc_cfg)
         return carry, (down, dmask) + tuple(desc[k] for k in DESC_KEYS)
 
+    @telemetry.spanned("loop.keyframe")
     def _keyframe(self, group, xc_R, xc_p):
         """Merge the window `group` of ScanPoses into the pose (xc_R, xc_p)
         and extract its descriptors: one dispatch, one host copy. Returns
@@ -222,6 +225,7 @@ class LoopPipeline:
         out = icp_point_to_plane(*inputs, icp_eigval=self.cfg.loop.icp_eigval)
         return carry, (out["ok"], out["R"], out["t"])
 
+    @telemetry.spanned("loop.icp")
     def _icp_chunk(self, kf: Keyframe, chunk, kfs):
         """ICP of keyframe `kf` against the candidate keyframes `kfs` from
         their RANSAC transforms (`chunk`'s verify results): one candidate
@@ -247,6 +251,7 @@ class LoopPipeline:
         R2, p2, _ = pg.solve_pose_graph_full(*inputs, iters=6)
         return carry, (R2, p2)
 
+    @telemetry.spanned("loop.pose_graph")
     def _solve_pose_graph(self, R, p, ii, jj, rel_R, rel_p, W6):
         """One ("pose_graph", K, E) dispatch over the padded anchor graph
         (the JAX package's `_pg_cache`); float64 (R, p) back."""
@@ -260,6 +265,7 @@ class LoopPipeline:
 
     # -- main step ----------------------------------------------------------
 
+    @telemetry.spanned("loop.push")
     def push(self, sp) -> LoopCorrection | None:
         """Feed one ScanPose of the odometry stream. Returns a
         LoopCorrection when a PGO burst ran (the odometry pipeline must

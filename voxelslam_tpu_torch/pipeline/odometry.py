@@ -54,6 +54,7 @@ from ..map import voxel_map as vm
 from ..ba import optimizers as opt
 from ..odom import iekf
 from ..ops.downsample import voxel_downsample
+from ..utils import telemetry
 from .graphs import StepGraph, host_arrays
 
 # host-side fields a carry snapshot needs besides the device tensors
@@ -85,6 +86,18 @@ _STEADY_GRAPHS = ("steady", "steady_k", "accum")
 
 def _roll(a, mg):
     return torch.cat([a[mg:], a[:mg]], dim=0)
+
+
+def _dropped(touched):
+    """(2,) float32: the voxels the hash could not place and the points the
+    dedup dropped past `unique_max`, over the levels of a fused insert."""
+    return torch.stack([x for t in touched for x in t[2:]]).reshape(
+        -1, 2).sum(0).to(torch.float32)
+
+
+def _tkey(t) -> float:
+    """A scan's end time as the steady step keeps it (float32)."""
+    return float(np.float32(t))
 
 
 @dataclasses.dataclass
@@ -216,7 +229,8 @@ class SlamPipeline:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 pool = self._pool
-            g = self._graphs[name] = StepGraph(fn, self.device, pool=pool)
+            g = self._graphs[name] = StepGraph(fn, self.device, pool=pool,
+                                               name=name)
         return g(carry, inputs)
 
     # ------------------------------------------------------------------
@@ -254,7 +268,9 @@ class SlamPipeline:
         self._batch_K = (1 if self.collect_clouds or cfg.lba.mgsize > 1
                          else max(1, cfg.odom.batch_scans))
         self._scan_queue: list = []
-        self._stats_len = 5 + 31 * cfg.lba.mgsize + 1
+        # ok, matches, nnt eig0, r0, r1, the emitted frames (31 a frame),
+        # the hash's and the dedup's dropped counts
+        self._stats_len = 5 + 31 * cfg.lba.mgsize + 2
         self._stats_ring = torch.zeros((self._ring_K, self._stats_len),
                                        device=dev)
         self._ring_fill = 0
@@ -268,6 +284,11 @@ class SlamPipeline:
         self.init_cloud_mask = torch.zeros((4 * P,), device=dev)
         if hard:
             self.scan_poses: list[ScanPose] = []
+            # with telemetry on: a scan's end time (float32, as the step
+            # keeps it) -> the scans handed in before it (the emission's
+            # hold)
+            self._scan_at: dict[float, int] = {}
+            self._n_in = 0
             self._gravity = None
             self._bg0 = torch.zeros(3, device=dev)
             self._scale_gravity = 1.0
@@ -397,31 +418,40 @@ class SlamPipeline:
         scan_beg, scan_end, last_end, jour = scal[0], scal[1], scal[2], scal[3]
         slot = scal[4].to(torch.int64)
 
+        mark = telemetry.mark       # a stage's end, in a captured step
         x_prop, body = self._prop_deskew(state, imu_ts, gyr, acc, imask,
                                          scan_beg, scan_end, last_end, pts,
                                          offsets, pmask)
+        mark("prop_deskew")
         down, dmask, var_b, tr = self._downsample_var(body, pmask)
+        mark("downsample")
         _, _, _, p_new = self._preint_interval(imu_ts, gyr, acc, imask,
                                                last_end, scan_end,
                                                x_prop.bg, x_prop.ba)
         preints = tmap(lambda a, b: put_row(a, W - 2, b), preints, p_new)
+        mark("preint")
 
         st, ok, diag = iekf.iekf_update(
             x_prop, levels, cfg.map, down, var_b, dmask,
             max_iter=cfg.odom.max_iter, degrade_eig=cfg.odom.degrade_eig)
+        mark("iekf")
 
         win = tmap(lambda a, b: put_row(a, W - 1, b), win, st)
         wld = down @ st.R.T + st.p
         levels, touched = vm.insert_scan_fused(
             levels, cfg.map, wld, down, tr, dmask, mp[W - 1], jour, st.R,
             st.p)
+        mark("insert")
         levels = vm.refresh_planes(levels, cfg.map, win.R, win.p, mp, W,
                                    touched=touched)
+        mark("refresh")
 
         factors = vm.harvest_t(levels, cfg.map, mp, cfg.lba.factor_max)
+        mark("harvest")
         new_win, H, r0, r1, conv = opt.lm_li(
             win, factors, preints, torch.ones((W,), device=self.device),
             imu_coef=cfg.lba.imu_coef, max_iter=cfg.lba.max_iter)
+        mark("window_ba")
         d6 = torch.stack([torch.diagonal(H)[k * DIM:k * DIM + 6]
                           for k in range(mg)])
         v6 = 1.0 / torch.clamp(torch.abs(d6), min=1e-6)
@@ -433,7 +463,6 @@ class SlamPipeline:
         win_next = tmap(lambda a: _roll(a, mg), new_win)
         preints = tmap(lambda a: _roll(a, mg), preints)
         x_out = new_win[W - 1]
-        dropped = torch.sum(torch.stack([t[2] for t in touched]))
         f32 = torch.float32
         stats = torch.cat([
             torch.stack([ok.to(f32), diag["matches"].to(f32),
@@ -441,9 +470,10 @@ class SlamPipeline:
             v6.reshape(-1), emitted.t.reshape(-1), emitted.R.reshape(-1),
             emitted.p.reshape(-1), emitted.v.reshape(-1),
             emitted.bg.reshape(-1), emitted.ba.reshape(-1),
-            emitted.g.reshape(-1), dropped.to(f32).reshape(1),
+            emitted.g.reshape(-1), _dropped(touched),
         ])
         ring = ring.index_copy(0, slot.reshape(1), stats[None])
+        mark("marginalize")
         return (x_out, levels, win_next, mp_new, preints, ring, down, dmask,
                 tr)
 
@@ -513,10 +543,10 @@ class SlamPipeline:
             jour, st.R, st.p)
         levels = vm.refresh_planes(levels, cfg.map, win.R, win.p, mp,
                                    frame_idx + 1, touched=touched)
-        dropped = torch.sum(torch.stack([t[2] for t in touched]))
         f32 = torch.float32
-        stats = torch.stack([ok.to(f32), diag["matches"].to(f32),
-                             diag["nnt_eig"][0], dropped.to(f32)])
+        stats = torch.cat([torch.stack([ok.to(f32), diag["matches"].to(f32),
+                                        diag["nnt_eig"][0]]),
+                           _dropped(touched)])
         return st, levels, win, preints, stats, down, dmask, tr
 
     def _init_accum_fn(self, carry, inputs):
@@ -766,6 +796,7 @@ class SlamPipeline:
     def _pad_points(self, pts, offsets=None):
         P = self.cfg.odom.point_max
         n = min(len(pts), P)
+        telemetry.count("odom.points_truncated", len(pts) - n)
         out = np.zeros((P, 3), np.float32)
         out[:n] = pts[:n]
         msk = np.zeros((P,), np.float32)
@@ -792,6 +823,15 @@ class SlamPipeline:
         """Feed one synchronized packet: points (N, 3) LiDAR frame, offsets
         (N,) seconds from t_beg, IMU samples covering (last_end, t_end].
         Returns a status dict."""
+        with telemetry.span("odom"):
+            if telemetry.on():
+                self._scan_at[_tkey(t_end)] = self._n_in
+                self._n_in += 1
+            return self._process_scan(points, offsets, imu_ts, imu_gyr,
+                                      imu_acc, t_beg, t_end)
+
+    def _process_scan(self, points, offsets, imu_ts, imu_gyr, imu_acc,
+                      t_beg, t_end):
         cfg = self.cfg
 
         # --- IMU static init (IMUEKF::IMU_init) ---
@@ -814,14 +854,17 @@ class SlamPipeline:
         if self._scale_gravity != 1.0:
             imu_acc = np.asarray(imu_acc, np.float64) * self._scale_gravity
 
-        pts_j, off_j, pmask = self._pad_points(points, offsets)
-        ts_j, gyr_j, acc_j, imask = self._pad_imu(imu_ts, imu_gyr, imu_acc)
+        with telemetry.span("odom.pack"):
+            pts_j, off_j, pmask = self._pad_points(points, offsets)
+            ts_j, gyr_j, acc_j, imask = self._pad_imu(imu_ts, imu_gyr,
+                                                      imu_acc)
+            imu_np = np.concatenate([ts_j[:, None], gyr_j, acc_j,
+                                     imask[:, None]], axis=1,
+                                    dtype=np.float32)
+            scan_np = np.concatenate([pts_j, off_j[:, None], pmask[:, None]],
+                                     axis=1, dtype=np.float32)
         last_end = self.last_scan_end if self.last_scan_end is not None else t_beg
         self.last_scan_end = t_end
-        imu_np = np.concatenate([ts_j[:, None], gyr_j, acc_j, imask[:, None]],
-                                axis=1, dtype=np.float32)
-        scan_np = np.concatenate([pts_j, off_j[:, None], pmask[:, None]],
-                                 axis=1, dtype=np.float32)
         if self.init_done:
             return self._process_steady_fused(imu_np, scan_np, t_beg, t_end,
                                               last_end)
@@ -867,7 +910,9 @@ class SlamPipeline:
                                        states,
                                        None if name in staged else inputs)
             staged.add(name)
-            r0, r1, ev = (float(v) for v in _np(res))
+            with telemetry.span("odom.readback"):
+                res = _np(res)
+            r0, r1, ev = (float(v) for v in res)
             if abs(r0 - r1) / max(r0, 1e-9) < conv_thr and rnd >= 2:
                 ev0 = ev
                 if not aligned:
@@ -903,8 +948,9 @@ class SlamPipeline:
             "init_map", self._init_map_fn, states,
             self.init_win.inputs() + (jour,))
         iw = self.init_win
-        out, mp_was, scans, masks, trs = fetch(
-            out, self.mp, iw.scans, iw.masks, iw.trs)
+        with telemetry.span("odom.readback"):
+            out, mp_was, scans, masks, trs = fetch(
+                out, self.mp, iw.scans, iw.masks, iw.trs)
         assert np.array_equal(mp_was, np.arange(W)), \
             "the init window's slot map is not arange(W)"
         v6 = out[:6 * mg].reshape(mg, 6)
@@ -920,6 +966,8 @@ class SlamPipeline:
                 v=e_v[k].copy(), v6=v6[k].copy(), cloud=scans[k].copy(),
                 cloud_mask=masks[k].copy(), session=self.session,
                 bg=e_bg[k].copy(), ba=e_ba[k].copy(), g=e_g[k].copy()))
+            if telemetry.on():
+                self._emitted(float(e_t[k]), self._n_in - 1)
         self.x, self.levels, self.win, self.mp = x, levels, win, mp
         self.preints_dev = preints
         self.scan_buf = np.roll(scans, -mg, axis=0)
@@ -1060,11 +1108,15 @@ class SlamPipeline:
         self.preints_dev = preints
         self.scan_count += 1
         if self.collect_clouds:
-            self.scan_buf[i] = _np(down)
-            self.scan_mask[i] = _np(dmask)
-            self.scan_tr[i] = _np(tr)
+            with telemetry.span("odom.readback"):
+                self.scan_buf[i] = _np(down)
+                self.scan_mask[i] = _np(dmask)
+                self.scan_tr[i] = _np(tr)
         self.win_count = i + 1
-        st = _np(stats)
+        with telemetry.span("odom.readback"):
+            st = _np(stats)
+        telemetry.count("map.hash_dropped", int(st[3]))
+        telemetry.count("map.unique_dropped", int(st[4]))
         ok = bool(st[0] > 0)
         self.degrade_cnt = max(0, self.degrade_cnt - 1) if ok \
             else self.degrade_cnt + 1
@@ -1099,7 +1151,29 @@ class SlamPipeline:
             out = out2 if out2 is not None else out
         return out
 
+    def _emitted(self, t, k_ba):
+        """Telemetry of one emitted pose of time t, let go by the BA of
+        scan k_ba: the scans up to its own are forgotten and, where its
+        scan is known, the pose counts with the scans between its own and
+        k_ba (the window) and from k_ba to the scan now handed in (the
+        hold: the batch queue and the deferred read)."""
+        at = self._scan_at
+        k = at.get(_tkey(t))
+        while at:
+            first = next(iter(at))
+            if first > _tkey(t):
+                break
+            del at[first]
+        if k is not None:
+            telemetry.count("odom.poses_emitted")
+            telemetry.count("odom.emit_window_scans", k_ba - k)
+            telemetry.count("odom.emit_hold_scans", self._n_in - 1 - k_ba)
+
     def _emit_pending(self):
+        with telemetry.span("odom.emit"):
+            return self._emit_pending_rows()
+
+    def _emit_pending_rows(self):
         """Read the pending stats (one device->host copy) and emit every
         deferred scan's poses + bookkeeping in order."""
         cfg = self.cfg
@@ -1107,9 +1181,10 @@ class SlamPipeline:
         mg = cfg.lba.mgsize
         ring, fill, t_ends, down, dmask, tr = self._pending
         self._pending = None
-        rows = _np(ring)
-        if down is not None:
-            down, dmask, tr = _np(down), _np(dmask), _np(tr)
+        with telemetry.span("odom.readback"):
+            rows = _np(ring)
+            if down is not None:
+                down, dmask, tr = _np(down), _np(dmask), _np(tr)
         out = None
         for r in range(fill):
             st = rows[r]
@@ -1125,6 +1200,8 @@ class SlamPipeline:
             e_ba = st[off + 19 * mg:off + 22 * mg].reshape(mg, 3)
             e_g = st[off + 22 * mg:off + 25 * mg].reshape(mg, 3)
             hash_dropped = int(st[off + 25 * mg])
+            telemetry.count("map.hash_dropped", hash_dropped)
+            telemetry.count("map.unique_dropped", int(st[off + 25 * mg + 1]))
             self.jour += float(np.linalg.norm(e_p[-1] - self._last_p)) \
                 if self._last_p is not None else 0.0
             self._last_p = e_p[-1]
@@ -1140,12 +1217,16 @@ class SlamPipeline:
                 self.scan_buf[W - 1] = down[r] if down.ndim == 3 else down
                 self.scan_mask[W - 1] = dmask[r] if dmask.ndim == 2 else dmask
                 self.scan_tr[W - 1] = tr[r] if tr.ndim == 3 else tr
+            k_ba = (self._scan_at.get(_tkey(t_ends[r])) if telemetry.on()
+                    else None)
             for k in range(mg):
                 self.scan_poses.append(ScanPose(
                     t=float(e_t[k]), R=e_R[k], p=e_p[k], v=e_v[k],
                     v6=v6_np[k], cloud=self.scan_buf[k].copy(),
                     cloud_mask=self.scan_mask[k].copy(),
                     session=self.session, bg=e_bg[k], ba=e_ba[k], g=e_g[k]))
+                if k_ba is not None:
+                    self._emitted(float(e_t[k]), k_ba)
             self.scan_buf = np.roll(self.scan_buf, -mg, axis=0)
             self.scan_mask = np.roll(self.scan_mask, -mg, axis=0)
             self.scan_tr = np.roll(self.scan_tr, -mg, axis=0)
@@ -1164,14 +1245,15 @@ class SlamPipeline:
         if (cfg.map.evict_check_every > 0
                 and self.scan_count % cfg.map.evict_check_every
                 < max(self._ring_K, self._batch_K)):
-            occ = _np(self._occ_counts(self.levels))
-            load = occ / np.array(cfg.map.capacities, np.float64)
-            if float(load.max()) > cfg.map.evict_load:
-                (self.levels,), (edrop,) = self._run(
-                    "evict", self._evict_fn, (self.levels,),
-                    (np.array([self.jour], np.float32),))
-                evicted = True
-                evict_dropped = int(_np(edrop).sum())
+            with telemetry.span("odom.evict_check"):
+                occ = _np(self._occ_counts(self.levels))
+                load = occ / np.array(cfg.map.capacities, np.float64)
+                if float(load.max()) > cfg.map.evict_load:
+                    (self.levels,), (edrop,) = self._run(
+                        "evict", self._evict_fn, (self.levels,),
+                        (np.array([self.jour], np.float32),))
+                    evicted = True
+                    evict_dropped = int(_np(edrop).sum())
         if out is not None:
             out["evicted"] = evicted
             out["evict_dropped"] = evict_dropped
@@ -1187,6 +1269,10 @@ class SlamPipeline:
         with gravity. The rebuild is one dispatch (`_correction_fn`), the
         gravity-joint solve another (`_g_reloc_fn`). The emitted ScanPoses
         were already moved by the loop pipeline (shared objects)."""
+        with telemetry.span("loop.correction"):
+            self._apply_correction(dx_R, dx_p, g_update, map_keyframes)
+
+    def _apply_correction(self, dx_R, dx_p, g_update, map_keyframes):
         self._flush_pending()   # emit the pre-correction state first
         self._host_window()
         cfg = self.cfg
@@ -1238,11 +1324,12 @@ class SlamPipeline:
         the live map as fixed statistics (reference keyframe_loading,
         voxelslam.cpp:1379-1438), refreshing the touched planes; one
         dispatch (`_keyframe_reload_fn`)."""
-        wld = (kf.cloud @ kf.R0.T + kf.p0).astype(np.float32)
-        (self.levels,), _ = self._run(
-            f"keyframe_reload_{len(wld)}", self._keyframe_reload_fn,
-            (self.levels,), (wld, np.asarray(kf.mask, np.float32),
-                             np.array([self.jour], np.float32)))
+        with telemetry.span("loop.reload"):
+            wld = (kf.cloud @ kf.R0.T + kf.p0).astype(np.float32)
+            (self.levels,), _ = self._run(
+                f"keyframe_reload_{len(wld)}", self._keyframe_reload_fn,
+                (self.levels,), (wld, np.asarray(kf.mask, np.float32),
+                                 np.array([self.jour], np.float32)))
 
     def flush(self):
         """Emit the remaining window states as ScanPoses (end of run)."""

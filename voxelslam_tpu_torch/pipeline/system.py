@@ -36,6 +36,7 @@ from __future__ import annotations
 import os
 
 from ..config import SlamConfig
+from ..utils import telemetry
 from .loop import LoopPipeline
 from .odometry import SlamPipeline, resolve_device
 
@@ -90,6 +91,7 @@ class SlamSystem:
     def scan_poses(self):
         return self.odom.scan_poses
 
+    @telemetry.spanned("scan")
     def process_scan(self, points, offsets, imu_ts, imu_gyr, imu_acc,
                      t_beg, t_end) -> dict:
         out = self.odom.process_scan(points, offsets, imu_ts, imu_gyr,
