@@ -108,18 +108,72 @@ def test_resume_gba_window_in_flight(tmp_path, packets):
         assert np.array_equal(a.cloud, b.cloud)
 
 
+def _batched_cfg():
+    cfg = _cfg()
+    return dataclasses.replace(cfg, odom=dataclasses.replace(
+        cfg.odom, batch_scans=4))
+
+
 def test_resume_scan_queue_partly_filled(tmp_path, packets):
     """batch_scans = 4 (loop off): saved with 1-3 scans queued for the next
-    K-step call and the deferred stats pending."""
-    cfg = _cfg()
-    cfg = dataclasses.replace(cfg, odom=dataclasses.replace(
-        cfg.odom, batch_scans=4))
-    _, _, queued = _resume_case(
+    K-step call (the last call emitted its own rows: nothing pending)."""
+    cfg = _batched_cfg()
+    sys1, _, queued = _resume_case(
         tmp_path, packets,
         lambda: SlamSystem(cfg, enable_loop=False, device="cpu"),
         lambda s, out, k: 0 < len(s.odom._scan_queue) < 4,
         lambda s: len(s.odom._scan_queue))
-    assert 0 < queued < 4
+    assert 0 < queued < 4 and sys1.odom._pending is None
+
+
+def test_resume_deferred_batch_of_an_earlier_version(tmp_path, packets):
+    """A checkpoint whose K-step call deferred its rows (`_pending`, as
+    the emission before it read a replay's rows one call later) is
+    restored: the next call hands them out, and the run goes on bitwise
+    as if they had left with their own call."""
+    cfg = _batched_cfg()
+    make = lambda: SlamSystem(cfg, enable_loop=False, device="cpu")
+    ref, old = make(), make()
+    k = 0
+    while True:
+        assert k + N_POST < len(packets), "save point not reached"
+        due = (k >= N_PRE and old.odom.init_done
+               and len(old.odom._scan_queue) == 3)
+        if due:      # this call dispatches: defer its rows by hand
+            od = old.odom
+
+            def defer(ring, fill, t_ends, *a, at_dispatch=False):
+                od._pending = (ring.clone(), fill, t_ends, None, None, None)
+                return {"phase": "odom", "pending": True}
+            od._emit = defer
+        ref.process_scan(*packets[k])
+        old.process_scan(*packets[k])
+        k += 1
+        if due:
+            del od._emit
+            break
+    held = old.odom._pending[1]
+    assert held == 4 and len(old.scan_poses) == len(ref.scan_poses) - held
+    path = str(tmp_path / "old.ckpt")
+    old.save_checkpoint(path)
+    new = make()
+    new.load_checkpoint(path)
+    assert new.odom._pending is not None
+    out = new.process_scan(*packets[k])
+    ref.process_scan(*packets[k])
+    assert out["phase"] == "odom" and "pending" not in out
+    assert new.odom._pending is None
+    assert len(new.scan_poses) == len(ref.scan_poses)
+    got = [_step(new, p) for p in packets[k + 1:k + 1 + N_POST]]
+    want = [_step(ref, p) for p in packets[k + 1:k + 1 + N_POST]]
+    for (o1, p1, R1), (o2, p2, R2) in zip(want, got):
+        assert o1 == o2
+        assert np.array_equal(p1, p2) and np.array_equal(R1, R2)
+    assert len(new.scan_poses) == len(ref.scan_poses)
+    for a, b in zip(ref.scan_poses, new.scan_poses):
+        assert a.t == b.t and a.session == b.session
+        assert np.array_equal(a.p, b.p) and np.array_equal(a.R, b.R)
+    assert new.odom.jour == ref.odom.jour
 
 
 def test_resume_mgsize2_refill_scan(tmp_path, packets):

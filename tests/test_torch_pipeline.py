@@ -222,3 +222,48 @@ def test_divergence_reset_starts_new_session():
     assert "init_done" in phases[r:], phases
     sessions = [sp.session for sp in pipe.scan_poses]
     assert sessions == sorted(sessions) and set(sessions) == {0, 1}
+
+
+def test_batched_divergence_reset_returns_from_its_dispatch():
+    """K = 4: the K-step call emits its own replay's rows, so the reset
+    returns from the dispatch call whose row trips `degrade_bound` (not a
+    dispatch later); the scans handed in after it start the new session's
+    init (the first, over the last two sparse scans, fails its degeneracy
+    gate: one more session), and the sessions of the emitted poses never
+    go back."""
+    traj, packets = _packets(N_SCANS + 26)
+    cfg = _config(tconfig)
+    cfg = dataclasses.replace(cfg, odom=dataclasses.replace(
+        cfg.odom, degrade_bound=2, batch_scans=4))
+    pipe = SlamPipeline(cfg, collect_clouds=False, device="cpu")
+    oks = {}                     # a dispatch call -> its rows' ok flags
+    run, call = pipe._run, [0]
+
+    def watch(name, fn, carry, inputs):
+        out = run(name, fn, carry, inputs)
+        if name == "steady_k":
+            oks[call[0]] = [bool(v > 0) for v in n(out[1][0])[:, 0]]
+        return out
+    pipe._run = watch
+    phases = []
+    for k, pkt in enumerate(packets):
+        if 13 <= k < 18:             # 20 points: the normal Gram's eig0 < 14
+            pkt = (pkt[0][:20], pkt[1][:20]) + pkt[2:]
+        call[0] = k
+        phases.append(pipe.process_scan(*pkt).get("phase"))
+    assert phases.count("reset") == 1, phases
+    r = phases.index("reset")
+    # the host's hysteresis over the rows in dispatch order
+    cnt, trip = 0, None
+    for k in sorted(oks):
+        for ok in oks[k]:
+            cnt = max(0, cnt - 1) if ok else cnt + 1
+            if cnt > cfg.odom.degrade_bound and trip is None:
+                trip = k
+    assert r == trip and r in oks, (r, trip, sorted(oks))
+    assert phases[r + 1] == "init_accum", phases
+    assert phases[r:].count("init_failed") == 1, phases
+    assert pipe.session == 2 and "init_done" in phases[r:], phases
+    assert phases[-1] == "odom" and pipe._gravity is not None
+    sessions = [sp.session for sp in pipe.scan_poses]
+    assert sessions == sorted(sessions) and set(sessions) == {0, 2}

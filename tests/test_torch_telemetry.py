@@ -155,14 +155,27 @@ def test_paths_record_their_spans(runs):
 def test_window_and_hold_make_the_lag(runs):
     """Batch 4, stats ring 4: for the poses the program counted, the
     window's scans plus the hold equal the scans a caller counts from a
-    pose's scan to the call that returned it."""
+    pose's scan to the call that returned it. The K-step call hands out
+    its own replay's poses, so each lag is the window (W - 1) plus the
+    scan's wait in the queue (0 to K - 1), and every pose leaves with
+    the call that computed it. One step a scan defers its reads: none
+    does."""
     _, _, emit_call, snap = runs["batched", True]
     c = snap["counters"]
     lags = [k - j for j, k in emit_call.items()]
     assert c["odom.poses_emitted"] == len(lags) > 8
     assert c["odom.emit_window_scans"] + c["odom.emit_hold_scans"] == sum(lags)
     assert c["odom.emit_window_scans"] == 5 * len(lags)   # W - 1
-    assert c["odom.emit_hold_scans"] > 0
+    assert set(lags) == {5, 6, 7, 8}                      # W - 1 + (0..K-1)
+    assert 0 < c["odom.emit_hold_scans"] <= 3 * len(lags)
+    assert c["odom.emit_at_dispatch"] == c["odom.poses_emitted"]
+    # one step a scan: only the init's map build hands out the pose it
+    # computed (mgsize 1: one), the steady poses leave a dispatch later
+    _, ev, emit_call, snap = runs["steady", True]
+    c = snap["counters"]
+    inits = sum(e.get("phase") == "init_done" for e in ev)
+    assert inits == 1 and c["odom.poses_emitted"] == len(emit_call) > 8
+    assert c["odom.emit_at_dispatch"] == inits
 
 
 def test_nested_spans_parents_self_times_and_counters():

@@ -157,6 +157,53 @@ def test_outputs_bitwise_with_telemetry_on_and_off(card, K):
     assert same_levels(runs[True][1], runs[False][1])
 
 
+def _reads():
+    return telemetry.snapshot()["spans"].get("odom.readback",
+                                             {}).get("count", 0)
+
+
+def dispatch_calls(device, graphed, n_scans=30, K=4):
+    """Run the scenario with K-step calls and telemetry on: per call, its
+    phase, whether it dispatched, its host reads (`odom.readback` spans)
+    and the scan index, session and bytes of each pose it handed out."""
+    pk = packets(n_scans)
+    telemetry.reset()
+    telemetry.enable()
+    pipe = SlamPipeline(cfg(batch_scans=K), device=device,
+                        step_graphs=graphed)
+    calls = []
+    for p in pk:
+        seen, reads = len(pipe.scan_poses), _reads()
+        out = pipe.process_scan(*p)
+        calls.append((out.get("phase"), not out.get("pending", False),
+                      _reads() - reads,
+                      [(int(round((sp.t - pk[0][6]) / 0.1)), sp.session,
+                        sp.R.tobytes(), sp.p.tobytes(), sp.v6.tobytes())
+                       for sp in pipe.scan_poses[seen:]]))
+    telemetry.disable()
+    return calls
+
+
+@pytest.mark.cuda
+def test_batched_call_hands_out_its_own_replay(card):
+    """K = 4: each dispatch call reads its own replay's K stats rows in
+    one device->host copy and hands out the poses that replay let go
+    (the batch's scans less W - 1); a queued scan's call reads nothing.
+    The poses are bitwise those of the eager steps (`step_graphs=False`)."""
+    W, K = 6, 4
+    graphed = dispatch_calls("cuda", True)
+    assert graphed == dispatch_calls("cuda", False)
+    steady = [(k, c) for k, c in enumerate(graphed) if c[0] == "odom"]
+    assert len(steady) >= 20
+    for k, (_, dispatched, reads, poses) in steady:
+        if dispatched:
+            assert reads == 1
+            assert [j for j, *_ in poses] == list(
+                range(k - K + 1 - (W - 1), k - (W - 1) + 1)), (k, poses)
+        else:
+            assert reads == 0 and poses == []
+
+
 @pytest.mark.cuda
 def test_span_interval_on_the_profiler_clock(card):
     """A span's start and end as telemetry keeps them agree with its

@@ -13,10 +13,14 @@ multi-round dynamic init with gravity alignment, voxelslam.cpp:460-819,
 Host code shuffles numpy buffers and decides phases; the math runs as
 PyTorch ops on `device`, with the voxel-moment sum of every steady scan
 in one CUDA kernel launch (`ops.moments`). The steady step keeps the JAX
-package's interface (carry + imu/scan blobs + scalars) and its deferred
-emission: packed per-scan stats gather in a ring that the host reads
-once per `stats_ring` scans, and `batch_scans` queued scans run as one
-K-step call.
+package's interface (carry + imu/scan blobs + scalars). Each scan packs
+its stats (divergence flag, BA residuals, the pose leaving the window)
+into a row of a ring on the device. `batch_scans` queued scans run as
+one K-step call, which reads its own K rows in one device->host copy
+(it waits for that replay, as any read after it would) and emits them
+in the same call. One step a scan (cloud collection, `lba.mgsize > 1`)
+defers instead: the host reads the ring once per `stats_ring` scans,
+after the next scan was dispatched.
 
 The loop-closure hooks are here too: `apply_correction` (a loop
 correction rebuilds the live map from keyframes and the corrected window,
@@ -967,7 +971,7 @@ class SlamPipeline:
                 cloud_mask=masks[k].copy(), session=self.session,
                 bg=e_bg[k].copy(), ba=e_ba[k].copy(), g=e_g[k].copy()))
             if telemetry.on():
-                self._emitted(float(e_t[k]), self._n_in - 1)
+                self._emitted(float(e_t[k]), self._n_in - 1, True)
         self.x, self.levels, self.win, self.mp = x, levels, win, mp
         self.preints_dev = preints
         self.scan_buf = np.roll(scans, -mg, axis=0)
@@ -991,8 +995,9 @@ class SlamPipeline:
 
     def _process_steady_fused(self, imu_np, scan_np, t_beg, t_end, last_end):
         """Steady phase: one megastep per scan (or per `batch_scans`
-        queued scans). Stats are read back once per ring fill, after the
-        next scan was dispatched, so emission lags up to ring+1 scans."""
+        queued scans, `_process_steady_batched`). Stats are read back once
+        per ring fill, after the next scan was dispatched, so emission
+        lags up to ring+1 scans."""
         if self._batch_K > 1:
             return self._process_steady_batched(imu_np, scan_np, t_beg, t_end,
                                                 last_end)
@@ -1038,12 +1043,19 @@ class SlamPipeline:
     def _process_steady_batched(self, imu_np, scan_np, t_beg, t_end,
                                 last_end):
         """Queue the scan; every `_batch_K`-th scan runs the K-step call
-        over the queue (`jour` read at dispatch for all K)."""
+        over the queue (`jour` read at dispatch for all K) and emits the
+        rows of that replay before it returns."""
         self._scan_queue.append((imu_np, scan_np, t_beg, t_end, last_end))
         self._pend_t.append(t_end)
         self.scan_count += 1
+        out = None
+        if self._pending is not None:
+            # a batch deferred by a checkpoint of an earlier version
+            out = self._emit_pending()
+            if out is not None and out.get("phase") == "reset":
+                return out
         if len(self._scan_queue) < self._batch_K:
-            return {"phase": "odom", "pending": True, "t": t_end}
+            return out or {"phase": "odom", "pending": True, "t": t_end}
         q, self._scan_queue = self._scan_queue, []
         t_ends, self._pend_t = self._pend_t, []
         K = len(q)
@@ -1051,48 +1063,32 @@ class SlamPipeline:
         scan_b = np.stack([e[1] for e in q])
         scals = np.array([[e[2], e[3], e[4], self.jour, float(k)]
                           for k, e in enumerate(q)], np.float32)
-        ((x, levels, win, mp, preints), (ring, downs, dmasks, trs)) = \
+        ((x, levels, win, mp, preints), (ring, *_)) = \
             self._run("steady_k", self._steady_k_fn,
                       (self.x, self.levels, self.win, self.mp,
                        self.preints_dev), (imu_b, scan_b, scals))
         self.x, self.levels, self.win, self.mp = x, levels, win, mp
         self.preints_dev = preints
-        out = None
-        if self._pending is not None:
-            out = self._emit_pending()
-        if out is not None and out.get("phase") == "reset":
-            return out
-        cc = self.collect_clouds     # the next replay overwrites these
-        self._pending = (ring.clone(), K, t_ends,
-                         downs.clone() if cc else None,
-                         dmasks.clone() if cc else None,
-                         trs.clone() if cc else None)
-        return out if out is not None else {"phase": "odom", "pending": True,
-                                            "t": t_end}
+        return self._emit(ring, K, t_ends, at_dispatch=True)
 
     def _drain_queue_partial(self):
         """Run a partially filled queue scan by scan through the K = 1 step
-        graph ("steady", the JAX package's `_jit_megastep`); sets
-        `_pending`."""
+        graph ("steady", the JAX package's `_jit_megastep`) and emit its
+        rows."""
         q, self._scan_queue = self._scan_queue, []
         t_ends, self._pend_t = self._pend_t, []
         rows = []
-        cc = self.collect_clouds
         for (imu_np, scan_np, t_beg, t_end, last_end) in q:
             ring1 = torch.zeros((1, self._stats_len), device=self.device)
             scal = np.array([t_beg, t_end, last_end, self.jour, 0.0],
                             np.float32)
             ((self.x, self.levels, self.win, self.mp, self.preints_dev, ring1),
-             clouds) = self._run(
+             _) = self._run(
                 "steady", self._steady_fn,
                 (self.x, self.levels, self.win, self.mp, self.preints_dev,
                  ring1), (imu_np, scan_np, scal))
-            # the next replay overwrites the ring and the clouds
-            rows.append((ring1.clone(),) + (tuple(c.clone() for c in clouds)
-                                            if cc else ()))
-        self._pending = (torch.cat([r[0] for r in rows]), len(q), t_ends) + (
-            tuple(torch.stack([r[j] for r in rows]) for j in (1, 2, 3))
-            if cc else (None, None, None))
+            rows.append(ring1.clone())     # the next replay overwrites it
+        return self._emit(torch.cat(rows), len(q), t_ends, at_dispatch=True)
 
     def _process_steady_accum(self, imu_np, scan_np, scal, t_end):
         """Window-refill scan (lba.mgsize > 1, win_count < W-1): one
@@ -1136,8 +1132,7 @@ class SlamPipeline:
             if out is not None and out.get("phase") == "reset":
                 return out
         if self._scan_queue:
-            self._drain_queue_partial()
-            out2 = self._emit_pending()
+            out2 = self._drain_queue_partial()
             if out2 is not None:
                 out = out2
             if out is not None and out.get("phase") == "reset":
@@ -1151,12 +1146,14 @@ class SlamPipeline:
             out = out2 if out2 is not None else out
         return out
 
-    def _emitted(self, t, k_ba):
+    def _emitted(self, t, k_ba, at_dispatch=False):
         """Telemetry of one emitted pose of time t, let go by the BA of
         scan k_ba: the scans up to its own are forgotten and, where its
         scan is known, the pose counts with the scans between its own and
         k_ba (the window) and from k_ba to the scan now handed in (the
-        hold: the batch queue and the deferred read)."""
+        hold: the batch queue, and the deferred read of one step a scan),
+        and `at_dispatch` where the call that dispatched k_ba hands it
+        out."""
         at = self._scan_at
         k = at.get(_tkey(t))
         while at:
@@ -1168,19 +1165,26 @@ class SlamPipeline:
             telemetry.count("odom.poses_emitted")
             telemetry.count("odom.emit_window_scans", k_ba - k)
             telemetry.count("odom.emit_hold_scans", self._n_in - 1 - k_ba)
+            if at_dispatch:
+                telemetry.count("odom.emit_at_dispatch")
 
     def _emit_pending(self):
-        with telemetry.span("odom.emit"):
-            return self._emit_pending_rows()
+        pending, self._pending = self._pending, None
+        return self._emit(*pending)
 
-    def _emit_pending_rows(self):
-        """Read the pending stats (one device->host copy) and emit every
-        deferred scan's poses + bookkeeping in order."""
+    def _emit(self, ring, fill, t_ends, down=None, dmask=None, tr=None,
+              at_dispatch=False):
+        with telemetry.span("odom.emit"):
+            return self._emit_rows(ring, fill, t_ends, down, dmask, tr,
+                                   at_dispatch)
+
+    def _emit_rows(self, ring, fill, t_ends, down, dmask, tr, at_dispatch):
+        """Read the first `fill` stats rows of `ring` (one device->host
+        copy) and emit their scans' poses + bookkeeping in order;
+        `at_dispatch` where the ring is this call's own replay's."""
         cfg = self.cfg
         W = cfg.lba.win_size
         mg = cfg.lba.mgsize
-        ring, fill, t_ends, down, dmask, tr = self._pending
-        self._pending = None
         with telemetry.span("odom.readback"):
             rows = _np(ring)
             if down is not None:
@@ -1226,7 +1230,7 @@ class SlamPipeline:
                     cloud_mask=self.scan_mask[k].copy(),
                     session=self.session, bg=e_bg[k], ba=e_ba[k], g=e_g[k]))
                 if k_ba is not None:
-                    self._emitted(float(e_t[k]), k_ba)
+                    self._emitted(float(e_t[k]), k_ba, at_dispatch)
             self.scan_buf = np.roll(self.scan_buf, -mg, axis=0)
             self.scan_mask = np.roll(self.scan_mask, -mg, axis=0)
             self.scan_tr = np.roll(self.scan_tr, -mg, axis=0)
