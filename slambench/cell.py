@@ -5,6 +5,22 @@
     slambench/traffic/<t>.json   a mix: scene, trajectory, noise, loop
     slambench/limits/<w>.json    the limits `correct` holds a cell to
     slambench/metrics/<m>.py     one reader a metric (`read(run)`)
+
+A configuration may name prior sessions, as the system takes them:
+"system": {"previous_maps": [names]}. Its traffic file then describes
+them, one a name in that order (`slambench.sessions` writes them in
+set-up):
+
+    "prior_sessions"  trajectories through the cell's scene, each with the
+                      keys of "trajectory", its "start" and its "scans"
+    "prior_error"     {"t_m", "yaw_deg"}: the seeded error of the saved
+                      poses, one rigid motion a session after the first
+    "prior_v6"        the variance row every saved scan carries
+    "prior_edges"     {"radius_m", "yaw_deg", "every"}: the rule that picks
+                      the edges between prior sessions in edge.txt
+
+Any trajectory, the live one's included, may start elsewhere than the
+origin: "start": [x, y, z, yaw] (metres, radians; `sim.place`).
 """
 
 from __future__ import annotations

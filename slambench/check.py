@@ -14,8 +14,20 @@ A `Recorder` keeps, while the window is open:
     (`check_verify` of the first `check_verify_first`): the descriptors
     and matches it got and the answer it gave.
 
-The run itself keeps every pose emitted in the window (`drive.Run`). After
-the window, with the program's state freed, each is compared:
+The recorder also copies each pose as the odometry hands it out (at the
+return of `SlamPipeline.process_scan` and `apply_correction`, before the
+loop pipeline rewrites the poses of a session it corrects), and notes the
+first correction that joins the live session to a prior one (`g_update`):
+the poses handed out up to its end are in the live session's own frame,
+those after it in F. These copies are the run's emitted poses
+(`drive.Run`), the one yardstick of every cell. Each pose is judged in the
+frame the odometry computed it in, so the split at the join is clean: the
+caller of `SlamSystem.process_scan` reads the poses of a corrected
+session once the loop pipeline has moved them, which mixes frames within
+the join's call. Where no correction comes, the two are the same poses,
+bit for bit. A correction's rewrite of poses already handed out is not
+judged here. After the window, with the program's state freed, each is
+compared:
 
   map_total_gap       per sampled scan and level, the window cluster's
                       totals against the scan's own (reference/moments.py)
@@ -24,8 +36,16 @@ the window, with the program's state freed, each is compared:
   pose_err_m          emitted poses against the ground truth after one
                       rigid fit (reference/poses.py); the configuration
                       states the limit
+  reloc_err_m         in a cell with prior sessions (`sessions.py`), the
+                      poses emitted once the live session joined a prior
+                      one, against the truth in the prior sessions' frame
+                      F, with no fit (pose_err_m then covers the poses
+                      before, in the live session's own frame; each part
+                      is compared where it holds 3 poses or more)
   edge_err_m          loop edges accepted and GBA edges made in the
-                      window, against the true relative poses (idem)
+                      window, against the true relative poses (idem); an
+                      end in a prior session is held to the writer's
+                      truth
   verify_mismatch     sampled verifications whose answer differs from the
                       plain RANSAC's (reference/ransac.py; exact: 0)
   plan_missed         draws or expected window events the window never
@@ -42,7 +62,8 @@ from .reference import poses as rpo
 from .reference import ransac as rra
 
 STEADY = ("steady", "steady_k")
-FAULTS = ("stale", "half", "altered")
+FAULTS = ("stale", "half", "altered", "relocated")
+RELOCATED_M = 0.25
 
 
 class PinnedPool:
@@ -89,8 +110,10 @@ def plant(fault: str, mg: int):
     returns the state it got; "half" leaves the second half of each
     scan's downsampled points out of the map insert; "altered" moves the
     emitted position of every third steady scan by 0.25 m where the step
-    writes it."""
+    writes it. ("relocated", in the correction, is the recorder's.)"""
     from voxelslam_tpu_torch.pipeline import odometry
+    if fault == "relocated":
+        return
     if fault == "half":
         vm = odometry.vm
         ins = vm.insert_scan_fused
@@ -140,6 +163,9 @@ class Recorder:
             vfirst, size=min(int(tr.get("check_verify", 0)), vfirst),
             replace=False)} if vfirst else set()
         self.counts = {}
+        self.handed = []         # (R, p) of each pose as handed out
+        self.joined_at = None    # poses handed out when it joined F
+        self.fault = fault
         self.steps = []
         self.verifies = []
         self.active = False
@@ -177,6 +203,7 @@ class Recorder:
                     down, dmask = out[1][1], out[1][2]
                 rec.steps.append(dict(
                     kind=name, K=int(down.shape[0]),
+                    at=rec.counts[name] - 1,     # its place in the window
                     data=[rec.pool.copy(t) for t in
                           map_tensors(levels, win, mp) + [down, dmask]]))
             return out
@@ -194,8 +221,35 @@ class Recorder:
                         k: np.array(v, copy=True) for k, v in out.items()}))
             return out
 
+        o_scan = odometry.SlamPipeline.process_scan
+        o_corr = odometry.SlamPipeline.apply_correction
+
+        def hand_out(poses):
+            for sp in poses[len(rec.handed):]:
+                rec.handed.append((np.array(sp.R, copy=True),
+                                   np.array(sp.p, copy=True)))
+
+        def scan_call(self_, *a, **kw):
+            out = o_scan(self_, *a, **kw)
+            hand_out(self_.scan_poses)
+            return out
+
+        def correction_call(self_, dx_R, dx_p, g_update, map_keyframes):
+            join = bool(g_update) and rec.joined_at is None
+            if join and rec.fault == "relocated":
+                dx_p = np.asarray(dx_p, np.float64) + [RELOCATED_M, 0, 0]
+            out = o_corr(self_, dx_R, dx_p, g_update, map_keyframes)
+            hand_out(self_.scan_poses)
+            if join:
+                rec.joined_at = len(rec.handed)
+            return out
+
         for obj, name, fn in ((odometry.SlamPipeline, "_run", odo_run),
-                              (btc.DescriptorDB, "verify", verify_call)):
+                              (btc.DescriptorDB, "verify", verify_call),
+                              (odometry.SlamPipeline, "process_scan",
+                               scan_call),
+                              (odometry.SlamPipeline, "apply_correction",
+                               correction_call)):
             self._saved.append((obj, name, getattr(obj, name)))
             setattr(obj, name, fn)
 
@@ -231,6 +285,8 @@ class Recorder:
             out.append("steady")
         if self.verify_plan and len(self.verifies) < len(self.verify_plan):
             out.append("verify")
+        if run.priors is not None and len(self._split(run)[1]) < 3:
+            out.append("relocalized")
         for k, n in self.cell.traffic.get("window_expect", {}).items():
             if run.events.get(k, 0) < n:
                 out.append(k)
@@ -249,8 +305,13 @@ class Recorder:
         gap, viol = self._map()
         out["map_total_gap"] = {"value": gap, "limit": lim["map_total_gap"]}
         out["map_key_violations"] = {"value": viol, "limit": 0}
-        out["pose_err_m"] = {"value": self._poses(run, stream),
-                             "limit": acc["pose_err_m"]}
+        before, after = self._split(run)
+        if run.priors is None or len(before) >= 3:
+            out["pose_err_m"] = {"value": self._poses(run, stream, before),
+                                 "limit": acc["pose_err_m"]}
+        if len(after) >= 3:
+            out["reloc_err_m"] = {"value": self._reloc(run, stream, after),
+                                  "limit": acc["pose_err_m"]}
         if self.cell.traffic["mode"] == "closed":
             out["edge_err_m"] = {"value": self._edges(run, stream,
                                                       sysm_parts),
@@ -296,7 +357,8 @@ class Recorder:
                         rmo.pack(keys[nz]), n_s[nz])
                     worst = max(worst, g)
                     bad += v
-                    self.map_seen.append(dict(kind=s["kind"], level=l,
+                    self.map_seen.append(dict(kind=s["kind"],
+                                              dispatch=s["at"], level=l,
                                               points=int(ref[0]),
                                               orth=float(np.abs(
                                                   G - np.eye(3)).max()),
@@ -304,8 +366,17 @@ class Recorder:
                                               violations=v))
         return worst, bad
 
-    def _poses(self, run, stream) -> float:
+    def _split(self, run):
+        """The window's emitted scans, split where the live session joined
+        a prior one: (before, after); all before where it never did or
+        the cell has no prior sessions."""
         js = sorted(run.emitted_pose)
+        if run.priors is None or self.joined_at is None:
+            return js, []
+        return ([j for j in js if run.emit_index[j] < self.joined_at],
+                [j for j in js if run.emit_index[j] >= self.joined_at])
+
+    def _poses(self, run, stream, js) -> float:
         if len(js) < 3:
             return 1e30
         p_est = np.stack([run.emitted_pose[j][1] for j in js])
@@ -314,19 +385,40 @@ class Recorder:
                               max=float(err.max()))
         return float(err.max())
 
+    def _reloc(self, run, stream, js) -> float:
+        """Worst distance of a pose emitted after the join from the truth
+        in F: no fit, the frame is what the relocalization produced."""
+        p_est = np.stack([run.emitted_pose[j][1] for j in js])
+        _, p_true = run.priors.to_frame(stream.gt_R[js], stream.gt_p[js])
+        d = p_est.astype(np.float64) - p_true
+        err = np.linalg.norm(d, axis=1)
+        pri = run.priors
+        moved = [np.linalg.norm(p - t, axis=1) for p, t in
+                 zip(run.prior_final, pri.gt_p)]
+        self.reloc_errs = dict(
+            n=len(js), first_scan=int(js[0]), median=float(np.median(err)),
+            max=float(err.max()), mean_xyz=d.mean(0).tolist(),
+            # where the pose graph left the prior sessions' scans
+            priors_max=[float(m.max()) for m in moved],
+            priors_median=[float(np.median(m)) for m in moved])
+        return float(err.max())
+
     def _edges(self, run, stream, parts) -> float:
         """Worst translation error of the loop and GBA edges made in the
         window."""
         errs = []
+        n_prior = 0 if run.priors is None else len(run.priors.names)
+        cross = 0
         for e in parts["edges"]:
-            ja = parts["scan_index"](e.id_a, e.ord_a)
-            jb = parts["scan_index"](e.id_b, e.ord_b)
-            if ja is None or jb is None:
+            a = parts["truth"](e.id_a, e.ord_a)
+            b = parts["truth"](e.id_b, e.ord_b)
+            cross += int((e.id_a < n_prior) != (e.id_b < n_prior))
+            if a is None or b is None:
                 errs.append(1e30)
                 continue
-            errs.append(rpo.edge_error(e.t, stream.gt_R[ja], stream.gt_p[ja],
-                                       stream.gt_R[jb], stream.gt_p[jb]))
+            errs.append(rpo.edge_error(e.t, *a, *b))
         self.edge_errs = dict(n=len(errs), loops=parts["n_loops"],
+                              cross_session=cross,
                               max=max(errs) if errs else None)
         return max(errs) if errs else 0.0
 

@@ -6,6 +6,13 @@ sizes, whatever the program's speed) or an open one (a live sensor: a
 scan every 1 / rate_hz seconds, due at the end of its sweep, whatever the
 program does).
 
+Where the configuration names prior sessions (`previous_maps`), set-up
+first writes them from the seed into a fresh temporary directory
+(`slambench.sessions`), which the system gets as its `savepath` and
+which is removed after the run. A deployment finds such files already on
+disk, so the writing is timed apart (`setup_parts["prior_sessions"]`) and
+left out of `setup_s`; their loading, inside `SlamSystem`, stays in it.
+
 What the run saw goes into a `Run` record, which the metric readers
 (`slambench/metrics/`) and the output check read.
 """
@@ -13,11 +20,13 @@ What the run saw goes into a `Run` record, which the metric readers
 from __future__ import annotations
 
 import dataclasses
+import shutil
+import tempfile
 import time
 
 import numpy as np
 
-from . import sim
+from . import sessions, sim
 
 
 @dataclasses.dataclass
@@ -53,6 +62,17 @@ class Run:
     edges: list = dataclasses.field(default_factory=list)     # LoopEdges
     n_loops: int = 0
     scan_t: dict = dataclasses.field(default_factory=dict)    # (s, i) -> t
+    emit_index: dict = dataclasses.field(default_factory=dict)  # k -> its
+    # place among the odometry's poses, in the window
+    priors: object = None    # sessions.Priors, where the cell has them
+    prior_sizes: dict = dataclasses.field(default_factory=dict)
+    joined_scan: int | None = None   # the call whose correction joined F
+    prior_final: list = dataclasses.field(default_factory=list)  # their
+    # positions where the loop pipeline holds them at the window's close
+    map_drops: dict = dataclasses.field(default_factory=dict)  # the calls'
+    # voxels the hash could not place and evictions, in the window and
+    # outside it; the window's calls that report drops, [call - warm-up,
+    # voxels]
 
 
 def window_scans(traffic: dict, seconds: float) -> int:
@@ -69,16 +89,19 @@ class Counters:
     """Counts taken in every run by wrapping the program's methods on their
     classes (cheap: no device sync): `DescriptorDB.verify` calls, the
     points handed to `_pad_points` against those it keeps, and the step
-    graphs captured (`StepGraph._warm_and_capture`) with their keys."""
+    graphs captured (`StepGraph._warm_and_capture`) with their keys; and
+    the seconds of `io.sessions.load_previous_sessions`, in set-up."""
 
     def __init__(self):
         self.verify = 0
         self.points_in = 0
         self.points_kept = 0
         self.captures = []
+        self.load_s = 0.0
         self._saved = []
 
-    def install(self):
+    def install(self, device):
+        from voxelslam_tpu_torch.io import sessions as ses
         from voxelslam_tpu_torch.loop import btc
         from voxelslam_tpu_torch.pipeline import graphs, odometry
         c = self
@@ -108,7 +131,17 @@ class Counters:
                                           "__name__", "?"))
                 return fn(self_)
             return call
+
+        def load(fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                _sync(device)
+                c.load_s += time.perf_counter() - t0
+                return out
+            return call
         wrap(btc.DescriptorDB, "verify", verify)
+        wrap(ses, "load_previous_sessions", load)
         wrap(odometry.SlamPipeline, "_pad_points", pad)
         wrap(graphs.StepGraph, "_warm_and_capture", capture)
 
@@ -171,31 +204,64 @@ def make_stream(cell, cfg, seed, seconds, device):
 
 
 def run(cell, seed: int, seconds: float, device, t_start: float,
-        tracer=None, recorder=None) -> tuple[Run, object, object]:
+        recorder, tracer=None) -> tuple[Run, object, object]:
     """Set-up and the window. `tracer` (trace.Tracer) opens its profile
-    and clocks on the window; `recorder` (check.Recorder) keeps the
-    sampled dispatches of the window for the output check. Returns (the
-    Run, the system, the stream)."""
+    and clocks on the window; `recorder` (check.Recorder, required) keeps
+    each pose as the odometry handed it out, which is what the run
+    records as emitted, and the sampled dispatches of the window for the
+    output check. Returns (the Run, the system, the stream)."""
+    import torch
+
+    tr = cell.traffic
+    cfg = cell.slam_config()
+    t_pri = time.perf_counter()
+    system = dict(cell.config["system"])
+    priors, savepath = None, None
+    try:
+        if sessions.named(cell) or tr.get("prior_sessions"):
+            savepath = tempfile.mkdtemp(prefix="slambench-sessions-")
+            priors = sessions.write(cell, cfg, seed, device, savepath)
+            system["savepath"] = savepath
+            _sync(device)
+        t_gen = time.perf_counter()
+        stream = make_stream(cell, cfg, seed, seconds, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            # the generator's and the writer's buffers are the
+            # benchmark's, not the program's
+            torch.cuda.reset_peak_memory_stats(device)
+        return _run(cell, seed, seconds, device, t_start, tracer, recorder,
+                    cfg, system, stream, priors, t_pri, t_gen)
+    finally:
+        if savepath is not None:
+            shutil.rmtree(savepath, ignore_errors=True)
+
+
+def _run(cell, seed, seconds, device, t_start, tracer, recorder, cfg,
+         system, stream, priors, t_pri, t_gen):
+    """`run` once the prior sessions are written and the stream made."""
     import torch
     from voxelslam_tpu_torch.pipeline.system import SlamSystem
 
     tr = cell.traffic
-    cfg = cell.slam_config()
-    t_gen = time.perf_counter()
-    stream = make_stream(cell, cfg, seed, seconds, device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        # the generator's buffers are the benchmark's, not the program's
-        torch.cuda.reset_peak_memory_stats(device)
     r = Run(cell=cell.name, seed=seed, seconds=seconds, mode=tr["mode"],
             stream_scans=len(stream), rays=float(np.mean(stream.rays)))
-    r.setup_parts = {"imports": t_gen - t_start,
+    r.setup_parts = {"imports": t_pri - t_start,
                      "stream": time.perf_counter() - t_gen}
+    if priors is not None:
+        r.priors = priors
+        r.setup_parts["prior_sessions"] = t_gen - t_pri
+        r.prior_sizes = dict(
+            sessions=len(priors.names), scans=[len(p) for p in priors.gt_p],
+            points=int(sum(int(c.sum()) for c in priors.points)),
+            bytes=priors.bytes, edges=len(priors.edges))
     counters = Counters()
-    counters.install()
+    counters.install(device)
     try:
-        sysm = SlamSystem(cfg, device=device, **cell.config["system"])
+        sysm = SlamSystem(cfg, device=device, **system)
+        if priors is not None:
+            r.prior_sizes["load_s"] = counters.load_s
         period = float(cell.config["sensor"]["period_s"])
         t_first = float(stream.t_end[0])
         r.t_first, r.period = t_first, period
@@ -213,17 +279,29 @@ def run(cell, seed: int, seconds: float, device, t_start: float,
             n_s = r.phases.setdefault(key, [0, 0.0])
             n_s[0] += 1
             n_s[1] += now - t_call
+            drops = r.map_drops.setdefault(
+                "window" if in_window else "outside",
+                {"hash_dropped": 0, "evictions": 0, "calls": []})
+            hd = int(out.get("hash_dropped", 0))
+            drops["hash_dropped"] += hd
+            drops["evictions"] += int(bool(out.get("evicted")))
+            if in_window and hd:
+                drops["calls"].append([k - tr["warm_scans"], hd])
             if in_window:
                 r.call_ms.append(round(1e3 * (now - t_call), 1))
             ps = sysm.odom.scan_poses
-            for sp in ps[seen[0]:]:
+            for e, sp in enumerate(ps[seen[0]:], seen[0]):
                 j = int(round((float(sp.t) - t_first) / period))
                 if j not in r.emit_at:
                     r.emit_at[j] = now
                     r.emit_call[j] = k
                     if in_window:
-                        r.emitted_pose[j] = (np.array(sp.R, copy=True),
-                                             np.array(sp.p, copy=True))
+                        # the pose as the odometry handed it out, before
+                        # a correction in this call moved it
+                        r.emitted_pose[j] = recorder.handed[e]
+                        r.emit_index[j] = e
+            if r.joined_scan is None and recorder.joined_at is not None:
+                r.joined_scan = k
             n_new = len(ps) - seen[0]
             seen[0] = len(ps)
             if lap and (k + 1) % lap == 0:
@@ -249,12 +327,11 @@ def run(cell, seed: int, seconds: float, device, t_start: float,
         lp = sysm.loop
         n_lp0 = len(lp.lp_edges) if lp else 0
         n_gba0 = len(sysm.gba.edges1) if sysm.gba is not None else 0
-        if recorder is not None:
-            recorder.open_window(sysm)
+        recorder.open_window(sysm)
         if tracer is not None:
             tracer.open_window(sysm)
         t0 = time.perf_counter()
-        r.setup_s = t0 - t_start
+        r.setup_s = t0 - t_start - r.setup_parts.get("prior_sessions", 0.0)
         r.setup_parts["window_prep"] = t0 - t_warm - r.setup_parts["warm"]
         k = warm
         if tr["mode"] == "closed":
@@ -302,8 +379,7 @@ def run(cell, seed: int, seconds: float, device, t_start: float,
             r.window_s = n_win * dt
         if tracer is not None:
             tracer.close_window(sysm)
-        if recorder is not None:
-            recorder.close_window(sysm)
+        recorder.close_window(sysm)
         r.captures_in_window = counters.captures[n_caps:]
         ev1 = lap_counts(sysm, counters)
         r.events = {k: ev1[k] - ev0[k] for k in ev1 if k != "sessions"}
@@ -318,6 +394,9 @@ def run(cell, seed: int, seconds: float, device, t_start: float,
             r.scan_t = {(s_, i): float(sp.t)
                         for s_, sps in enumerate(lp.scan_poses)
                         for i, sp in enumerate(sps)}
+            if priors is not None:
+                r.prior_final = [np.stack([sp.p for sp in sps]) for sps in
+                                 lp.scan_poses[:len(priors.names)]]
         if device.type == "cuda":
             r.peak_bytes = int(torch.cuda.max_memory_allocated(device))
         r.points_in, r.points_kept = counters.points_in, counters.points_kept

@@ -11,6 +11,9 @@ window then hands scans to `SlamSystem.process_scan` for `--seconds`
 profiler and the stage clocks (`slambench.trace`) and the run reports the
 cell's per-layer metrics; with `--trace 0` its end-to-end metrics.
 
+A configuration that names prior sessions has them written from the seed
+first (`slambench.sessions`), outside `setup_s`.
+
 After the window the output check (`slambench.check`) holds what the
 timed path produced (emitted poses, loop and GBA edges, the map's window
 clusters after sampled steps, sampled loop verifications) to the plain
@@ -91,6 +94,23 @@ def device_of(args, cell):
     return torch.device("cuda", 0)
 
 
+def truth(run, stream, s: int, i: int):
+    """The true (R, p) at the end of the loop pipeline's scan i of
+    session s, or None: a prior session's from its writer, the live
+    stream's by the scan's time; in the prior sessions' frame F where the
+    cell has them."""
+    pri = run.priors
+    if pri is not None and s < len(pri.names):
+        return pri.truth(s, i)
+    if (s, i) not in run.scan_t:
+        return None
+    j = int(round((run.scan_t[(s, i)] - run.t_first) / run.period))
+    if not 0 <= j < len(stream):
+        return None
+    R, p = stream.gt_R[j], stream.gt_p[j]
+    return (R, p) if pri is None else pri.to_frame(R, p)
+
+
 def main(argv=None) -> int:
     args = parse(argv)
     for var, sub in (("TRITON_CACHE_DIR", "triton"),
@@ -127,6 +147,8 @@ def main(argv=None) -> int:
         "window_scans": len(run.window_scans),
         "map_occupancy": run.occupancy, "calls": run.phases,
         "setup_parts": run.setup_parts, "call_ms": run.call_ms,
+        "prior_sessions": run.prior_sizes or None,
+        "map_drops": run.map_drops,
         "captures_in_window": run.captures_in_window,
         "feeder_late_ms": (None if not run.lateness else {
             "median": 1e3 * sorted(run.lateness)[len(run.lateness) // 2],
@@ -150,10 +172,7 @@ def main(argv=None) -> int:
 
     # the output check, once the window has closed and the peak is read
     parts = {"edges": run.edges, "n_loops": run.n_loops,
-             "scan_index": lambda s_, i: (
-                 None if (s_, i) not in run.scan_t else
-                 int(round((run.scan_t[(s_, i)] - run.t_first)
-                           / run.period)))}
+             "truth": lambda s_, i: truth(run, stream, s_, i)}
     del sysm
     recorder.uninstall()
     if dev.type == "cuda":
@@ -181,6 +200,9 @@ def main(argv=None) -> int:
         "check_s": t_check, "events": run.events,
         "map": getattr(recorder, "map_seen", None),
         "poses": getattr(recorder, "pose_errs", None),
+        "relocalized": None if run.priors is None else dict(
+            joined_scan=run.joined_scan,
+            **(getattr(recorder, "reloc_errs", None) or {})),
         "edges": getattr(recorder, "edge_errs", None),
         "verify": getattr(recorder, "verify_seen", None),
         "run_s": time.perf_counter() - _T_START}), flush=True)

@@ -127,6 +127,39 @@ def waypoint_trajectory(legs, dt=1e-3, speed=1.2, ramp=1.0, still=0.0,
                              accs=accs)
 
 
+def yaw_matrix(yaw: float) -> np.ndarray:
+    """The rotation by `yaw` radians about the vertical."""
+    c, s = math.cos(yaw), math.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def place(traj: simref.Trajectory, start) -> simref.Trajectory:
+    """The trajectory moved by one rigid motion about the vertical: turned
+    by yaw `start[3]` (radians) about the origin, then moved by
+    `start[:3]`, so it begins at `start[:3]` heading `start[3]`. The
+    body-frame rates are unchanged, and so are the IMU's samples: gravity
+    lies along the axis of the turn. None or all zeros is the trajectory
+    itself, the same object."""
+    if start is None or not any(start):
+        return traj
+    Rz = yaw_matrix(float(start[3]))
+    return simref.Trajectory(
+        ts=traj.ts, Rs=Rz @ traj.Rs, ps=traj.ps @ Rz.T + np.asarray(
+            start[:3], np.float64), vs=traj.vs @ Rz.T, omegas=traj.omegas,
+        accs=traj.accs @ Rz.T)
+
+
+def trajectory(spec: dict) -> simref.Trajectory:
+    """A traffic file's trajectory: its legs (repeated `repeat` times)
+    from its optional `start` [x, y, z, yaw]."""
+    legs = [tuple(l) for l in spec["legs"]] * int(spec.get("repeat", 1))
+    traj = waypoint_trajectory(legs, dt=spec.get("dt", 1e-3),
+                               speed=spec["speed"], ramp=spec["ramp"],
+                               still=spec["still"], wobble=spec["wobble"],
+                               z_amp=spec["z_amp"])
+    return place(traj, spec.get("start"))
+
+
 def imu_samples(traj: simref.Trajectory, rate, bg, ba, gyr_std, acc_std,
                 seed, t0=0.0, t1=None):
     """`simref.imu_stream` vectorised: the same samples, and with noise the
@@ -296,12 +329,7 @@ def make_stream(sensor: dict, traffic: dict, seed: int, device,
     """The stream of a cell: the configuration's `sensor` block and the
     traffic file, scans of `sensor["period_s"]` back to back from the
     trajectory's start plus `traffic["t0_s"]`."""
-    tr = traffic["trajectory"]
-    legs = [tuple(l) for l in tr["legs"]] * int(tr.get("repeat", 1))
-    traj = waypoint_trajectory(legs, dt=tr.get("dt", 1e-3),
-                               speed=tr["speed"], ramp=tr["ramp"],
-                               still=tr["still"], wobble=tr["wobble"],
-                               z_amp=tr["z_amp"])
+    traj = trajectory(traffic["trajectory"])
     scene = scene_from_spec(traffic["scene"])
     period = sensor["period_s"]
     t0 = traffic.get("t0_s", 0.1)
